@@ -1,0 +1,70 @@
+"""Weights for the port's net: carry-over from the JAX package's Flax
+parameter tree, and a seeded initializer for runs without JAX.
+
+`from_flax_params` maps a Flax tree (given as numpy arrays) onto the
+state_dict of models.model.KataGoModel: module names match the Flax
+auto-names, conv kernels go HWIO -> OIHW and dense kernels [in, out] ->
+[out, in]. `init_weights` mirrors katago_init (model.py:56 of the JAX
+package): truncated normal with std = scale * gain / sqrt(fan_in) /
+0.8796 at +-2 std, zeros where scale is 0, biases and betas zero, gammas
+one — drawn from a torch.Generator, so the numbers differ from JAX's.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from katago_torch.models import model as M
+
+_TRUNC_CORRECTION = 0.87962566103423978
+
+
+def from_flax_params(params_np: dict) -> dict:
+    """Flax params (the dict under "params", numpy leaves) -> state_dict."""
+    out = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + ".")
+                continue
+            a = np.array(v, dtype=np.float32)
+            if k == "kernel" and a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif k == "kernel" and a.ndim == 2:
+                a = a.T
+            out[prefix + k] = torch.from_numpy(np.ascontiguousarray(a).copy())
+
+    walk(params_np, "")
+    return out
+
+
+@torch.no_grad()
+def init_weights(model: M.KataGoModel, seed: int) -> M.KataGoModel:
+    """Seeded katago_init-style initialization of every kernel, in module
+    order; returns the model."""
+    gen = torch.Generator().manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, (M.ConvCore, M.Dense)):
+            w = mod.kernel
+            if mod.init_scale == 0.0:
+                w.zero_()
+            else:
+                fan_in = w.shape[1] * (w.shape[2] * w.shape[3]
+                                       if w.dim() == 4 else 1)
+                std = (mod.init_scale * M.GAINS[mod.init_activation]
+                       / math.sqrt(fan_in) / _TRUNC_CORRECTION)
+                t = torch.empty(w.shape)
+                torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std,
+                                            2.0 * std, generator=gen)
+                w.copy_(t)
+            if isinstance(mod, M.Dense) and mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, M.NormMask):
+            mod.beta.zero_()
+            if mod.gamma is not None:
+                mod.gamma.fill_(1.0)
+    return model

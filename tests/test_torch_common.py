@@ -1,0 +1,211 @@
+"""Shared helpers for the PyTorch port's tests (tests/test_torch_*.py).
+
+Inputs are made from a seed with numpy and fed to both the JAX package
+and its port (on device="cpu"); outputs are compared as numpy arrays.
+JAX programs are jitted once per module through `jax_fns`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from katago_tpu.game import history as JH
+from katago_tpu.game import rules as JR
+from katago_torch.game import history as TH
+from katago_torch.game import rules as TR
+
+CPU = "cpu"
+
+RULESETS = {
+    "tromp_taylor": (JR.Rules.tromp_taylorish(), TR.Rules.tromp_taylorish()),
+    "japanese": (JR.Rules.parse("japanese"), TR.Rules.parse("japanese")),
+}
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def assert_tree_equal(jax_tree, torch_tree, path="", skip=()):
+    """Field-by-field exact comparison of a JAX NamedTuple tree with the
+    port's dataclass tree (hash lanes compare as integers)."""
+    if dataclasses.is_dataclass(torch_tree):
+        for f in dataclasses.fields(torch_tree):
+            if f.name in skip:
+                continue
+            assert_tree_equal(getattr(jax_tree, f.name),
+                              getattr(torch_tree, f.name),
+                              f"{path}.{f.name}", skip)
+        return
+    a = np.asarray(jax_tree)
+    b = to_np(torch_tree)
+    if a.dtype == np.float32 or b.dtype == np.float32:
+        np.testing.assert_array_equal(a.astype(np.float32),
+                                      b.astype(np.float32), err_msg=path)
+    else:
+        np.testing.assert_array_equal(a.astype(np.int64), b.astype(np.int64),
+                                      err_msg=path)
+
+
+def jax_batch(tree, g):
+    return jax.tree.map(
+        lambda x: jnp.broadcast_to(x, (g,) + x.shape).copy(), tree)
+
+
+def to_jax_like(template, torch_tree):
+    """The port's dataclass tree as a JAX NamedTuple tree shaped like
+    `template` (leaves cast to the template's dtypes; hash lanes go back
+    to uint32). The inverse of the field walk of assert_tree_equal."""
+    if dataclasses.is_dataclass(torch_tree):
+        names = [f.name for f in dataclasses.fields(torch_tree)]
+        assert set(names) == set(template._fields), (names, template._fields)
+        return template._replace(**{
+            n: to_jax_like(getattr(template, n), getattr(torch_tree, n))
+            for n in names})
+    a = np.asarray(template)
+    b = to_np(torch_tree)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return jnp.asarray(b.astype(a.dtype))
+
+
+def jax_games_like(t_gs, size):
+    """The port's GameState batch (rules included) as a katago_tpu
+    GameState batch."""
+    jrules = RULESETS["tromp_taylor"][0]
+    g, max_hist = t_gs.ko_hash_hist.shape[:2]
+    template = jax_batch(
+        JH.new_game(size, JH.RulesArr.from_rules(jrules), max_hist), g)
+    return to_jax_like(template, t_gs)
+
+
+def flax_params(module, size, seed):
+    """Seeded random parameters for a Flax KataGoModel, shaped by
+    jax.eval_shape (no init compile): kernels N(0, 1/fan_in), norm gammas
+    1 + N(0, 0.01), biases and betas N(0, 0.01)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, size, size, 22)),
+                            jnp.zeros((1, 19)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        z = rng.standard_normal(leaf.shape).astype(np.float32)
+        if len(leaf.shape) >= 2:
+            return jnp.asarray(z / np.sqrt(np.prod(leaf.shape[:-1])))
+        if jax.tree_util.keystr(path).endswith("['gamma']"):
+            return jnp.asarray(1.0 + 0.1 * z)
+        return jnp.asarray(0.1 * z)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fns(size: int):
+    """Jitted, vmapped JAX engine functions for one board size."""
+    return {
+        "legal": jax.jit(jax.vmap(lambda gs: JH.legal_moves(gs, size))),
+        "step": jax.jit(jax.vmap(lambda gs, m: JH.step(gs, m, size)[0])),
+        "score": jax.jit(jax.vmap(lambda gs: JH.final_score(gs, size))),
+    }
+
+
+def _draw_moves(legal, nn, rng, pass_prob):
+    """One seeded random legal move per game (a pass with pass_prob, or
+    when no point is legal), as int64[g]."""
+    moves = np.full((legal.shape[0],), nn, np.int64)
+    for i in range(legal.shape[0]):
+        on_board = np.flatnonzero(legal[i, :nn])
+        if len(on_board) and rng.random() >= pass_prob:
+            moves[i] = rng.choice(on_board)
+    return moves
+
+
+def random_games(size: int, g: int, n_moves: int, rules_name: str,
+                 seed: int, pass_prob: float = 0.03, check=None):
+    """Play g seeded random games of n_moves on both engines in lockstep.
+
+    Moves are drawn with numpy from the JAX legality mask (which must equal
+    the port's at every step). check(j_gs, t_gs) runs after every move.
+    Returns the final (jax GameState batch, torch GameState batch)."""
+    jrules, trules = RULESETS[rules_name]
+    fns = jax_fns(size)
+    nn = size * size
+    rng = np.random.default_rng(seed)
+    j_gs = jax_batch(JH.new_game(size, JH.RulesArr.from_rules(jrules), 64), g)
+    t_gs = TH.new_game(size, trules, 64, g=g, device=CPU)
+    for _ in range(n_moves):
+        legal = np.asarray(fns["legal"](j_gs))
+        np.testing.assert_array_equal(legal, to_np(TH.legal_moves(t_gs, size)))
+        moves = _draw_moves(legal, nn, rng, pass_prob)
+        j_gs = fns["step"](j_gs, jnp.asarray(moves.astype(np.int32)))
+        t_gs, _ = TH.step(t_gs, torch.from_numpy(moves), size)
+        if check is not None:
+            check(j_gs, t_gs)
+    return j_gs, t_gs
+
+
+def random_games_torch(size: int, g: int, n_moves: int, rules_name: str,
+                       seed: int, pass_prob: float = 0.03):
+    """g seeded random games of n_moves on the port alone (its stepping
+    is held against the JAX package by random_games); returns the final
+    GameState batch."""
+    trules = RULESETS[rules_name][1]
+    nn = size * size
+    rng = np.random.default_rng(seed)
+    t_gs = TH.new_game(size, trules, 64, g=g, device=CPU)
+    for _ in range(n_moves):
+        moves = _draw_moves(to_np(TH.legal_moves(t_gs, size)), nn, rng,
+                            pass_prob)
+        t_gs, _ = TH.step(t_gs, torch.from_numpy(moves), size)
+    return t_gs
+
+
+def _remove_libertyless_chains(board, size):
+    """Empty every stone chain of a flat board that has no liberty (the
+    cleaning of tests/test_chase_pallas.py, as a numpy flood fill)."""
+    out = board.copy()
+    seen = np.zeros(board.shape, bool)
+    for start in np.flatnonzero(board):
+        if seen[start]:
+            continue
+        chain, stack, has_lib = [], [start], False
+        seen[start] = True
+        while stack:
+            p = stack.pop()
+            chain.append(p)
+            y, x = divmod(p, size)
+            for q in ((p - size) if y > 0 else -1,
+                      (p + size) if y + 1 < size else -1,
+                      (p - 1) if x > 0 else -1,
+                      (p + 1) if x + 1 < size else -1):
+                if q < 0:
+                    continue
+                if board[q] == 0:
+                    has_lib = True
+                elif board[q] == board[p] and not seen[q]:
+                    seen[q] = True
+                    stack.append(q)
+        if not has_lib:
+            out[chain] = 0
+    return out
+
+
+def random_boards(size, g, seed, density_lo=0.15, density_hi=0.6):
+    """Seeded random reachable boards (libertyless chains removed), as in
+    tests/test_chase_pallas.py; returns int32[g, NN] numpy."""
+    nn = size * size
+    rng = np.random.default_rng(seed)
+    boards = []
+    for _ in range(g):
+        density = rng.uniform(density_lo, density_hi)
+        st = rng.choice([0, 1, 2], size=(nn,),
+                        p=[1 - density, density / 2, density / 2])
+        boards.append(_remove_libertyless_chains(st, size))
+    return np.stack(boards).astype(np.int32)

@@ -1,0 +1,82 @@
+"""The port's V7 featurizer vs katago_tpu.models.features.fill_features in
+chase mode with cached ladder inputs (the search evaluator's path), on
+seeded random 9x9 games under area and territory rules: spatial planes
+exact, globals within 1e-6. The games are played on the port and handed
+to JAX as the same GameState (test_torch_board.py holds the stepping
+itself against JAX)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from katago_tpu.game import ladder as JL
+from katago_tpu.models import features as JF
+from katago_torch import _tensortree as T
+from katago_torch.game import history as TH
+from katago_torch.game import ladder as TL
+from katago_torch.models import features as TF
+
+from tests import test_torch_common as C
+
+SIZE = 9
+
+
+def _cat_torch(a, b):
+    return T.tree_map(lambda x, y: torch.cat([x, y]), a, b)
+
+
+def test_fill_features_v7_chase_mode_matches_jax():
+    t1 = C.random_games_torch(SIZE, 3, 30, "tromp_taylor", 21)
+    t2 = C.random_games_torch(SIZE, 3, 24, "japanese", 22, pass_prob=0.2)
+    t_gs = _cat_torch(t1, t2)
+    j_gs = C.jax_games_like(t_gs, SIZE)
+    g = 6
+    legal = TH.legal_moves(t_gs, SIZE)
+    stones = t_gs.pos.board.stones
+    cur = TL.ladder_map_chase_batch(stones, SIZE,
+                                    ko_loc=t_gs.pos.simple_ko_loc)
+    prev = TL.ladder_map_chase_batch(t_gs.pos.prev_stones.to(torch.int32),
+                                     SIZE, ko_loc=t_gs.pos.prev_ko_loc)
+    pprev = TL.ladder_map_chase_batch(
+        t_gs.pos.prev_prev_stones.to(torch.int32), SIZE,
+        ko_loc=t_gs.pos.prev_prev_ko_loc)
+    params = TF.FeatureParams(torch.tensor(0.5), torch.tensor(0.25),
+                              torch.tensor(False))
+    sp, gl = TF.fill_features(t_gs, SIZE, params, legal,
+                              ladder_mode="chase",
+                              prev_laddered=prev.laddered,
+                              prev_prev_laddered=pprev.laddered,
+                              cur_ladder=cur)
+
+    jcur = JL.LadderResult(*(jnp.asarray(C.to_np(getattr(cur, f.name)))
+                             for f in dataclasses.fields(cur)))
+    jparams = JF.FeatureParams(jnp.float32(0.5), jnp.float32(0.25),
+                               jnp.bool_(False))
+    jsp, jgl = jax.jit(jax.vmap(
+        lambda gs_, l_, p_, pp_, cl_: JF.fill_features(
+            gs_, SIZE, jparams, l_, ladder_mode="chase", prev_laddered=p_,
+            prev_prev_laddered=pp_, cur_ladder=cl_)))(
+        j_gs, jnp.asarray(C.to_np(legal)), jnp.asarray(C.to_np(prev.laddered)),
+        jnp.asarray(C.to_np(pprev.laddered)), jcur)
+    assert sp.shape == (g, SIZE * SIZE, 22) and gl.shape == (g, 19)
+    np.testing.assert_array_equal(C.to_np(sp), np.asarray(jsp))
+    np.testing.assert_allclose(C.to_np(gl), np.asarray(jgl), rtol=0,
+                               atol=1e-6)
+    # the positions exercise the interesting planes
+    assert C.to_np(sp[..., 14]).any() or C.to_np(sp[..., 3]).any()
+    assert C.to_np(sp[..., 18]).any()
+
+
+def test_fill_features_rejects_unported_versions():
+    gs = TH.new_game(SIZE, C.RULESETS["tromp_taylor"][1], 8, g=1,
+                     device="cpu")
+    legal = TH.legal_moves(gs, SIZE)
+    params = TF.FeatureParams.default("cpu")
+    import pytest
+    with pytest.raises(NotImplementedError):
+        TF.fill_features(gs, SIZE, params, legal, version=6)
+    with pytest.raises(NotImplementedError):
+        TF.fill_features(gs, SIZE, params, legal, ladder_mode="exact")
