@@ -1,15 +1,18 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. build both CUDA kernels from katago_torch/ops/csrc (one nvcc each,
      in parallel) and print the build time;
-  2. K2 connected_labels vs its plain torch version on 128 random 19x19
-     boards plus a snake and an empty board — exact equality;
+  2. K2 connected_labels vs its plain torch version on the cases of
+     katago_torch/ops/cases.py (a spiral, a serpentine, a checkerboard,
+     a full and an empty board, 128 random mid-game 19x19 boards) —
+     exact equality; then its time on the main path's [128, 361] shape;
   3. K1 chase_lanes vs its plain torch version on the 4096 lanes that
      _chase_setup builds from 128 random mid-game 19x19 positions (ko and
-     atari boards included) — exact equality;
+     atari boards included) and on the lanes of the quirk cases — exact
+     equality; then its time on the 4096 main-path lanes;
   4. the b18c384nbt net in bfloat16 at batch 128 — finite outputs;
   5. SearchDriver.search at 19x19, b18c384nbt, bf16, 128 games,
      SearchParams.for_selfplay(), ladder planes on, chunks of 200, 600
@@ -20,19 +23,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      its plain version's and its bound, launches per search, playouts/s,
      a `kernels` JSON line, and the result line last.
 
-Weights are random (seeded); the bound of a kernel is the larger of its
-bytes (each input read once, each output written once) over 3.35 TB/s
-and a lower bound of its integer operations over 67 Tops/s (the H100
-SXM's non-tensor 32-bit rate).
+A kernel's time ("device-only") is that of N launches captured in one
+CUDA graph and replayed, timed with CUDA events, over N: the device's
+time alone, with no host work between launches. The wrapper's host cost
+is printed on its own line: a host clock over N calls with no sync in
+the loop. The plain version's time is CUDA events around one call.
+
+--baseline DIR builds DIR/labels.cu and DIR/chase.cu (the kernels' first
+design, commit 5f55cfa, with its C interface; copy them from git history
+into a git-ignored directory, never commit them) into DIR, holds them
+against the plain versions too and times each old kernel and the current
+one in turns (old, new, new, old) on the same inputs; it then stops
+after phase 3 and prints no result line.
+
+Weights are random (seeded); the bound of a kernel is the larger of the
+bytes its function needs (each input it must read, read once; each output
+written once) over 3.35 TB/s and a lower bound of its integer operations
+over 67 Tops/s (the H100 SXM's non-tensor 32-bit rate).
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -45,13 +64,21 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 
+# The C interface of the kernels' first design, for --baseline.
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+OLD_SIGNATURES = {
+    "labels": {"connected_labels_launch": [_P, _P, _I, _I, _P]},
+    "chase": {"chase_lanes_launch": [_P] * 8 + [_I] * 3 + [_P]},
+}
+
 
 def log(*a):
     print(*a, flush=True)
 
 
-def gpu_time_ms(fn, reps):
-    """Median of per-call CUDA-event times (after one warm-up call)."""
+def event_ms(fn, reps):
+    """Median of per-call CUDA-event times around fn (after a warm-up)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -66,26 +93,103 @@ def gpu_time_ms(fn, reps):
     return statistics.median(times)
 
 
-def remove_dead(st):
-    """Clear libertyless chains so boards are reachable positions."""
-    from katago_torch.game import board as B
-    from katago_torch.game import ladder as LAD
-    lab = LAD._stone_labels(st, SIZE)
-    libs = B.chain_liberties(st, lab, SIZE)
-    return torch.where((st > 0) & (libs == 0), 0, st).to(torch.int32)
+def device_ms(fn, n, reps=5):
+    """Device-only ms per launch: n calls of fn (which must launch the
+    kernel and nothing else) captured in one CUDA graph; the median over
+    reps replays of the replay's event time over n."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    return statistics.median(times)
 
 
-def random_boards(g, seed, dev):
-    """Seeded random mid-game boards (15-60% of points occupied)."""
-    gen = torch.Generator().manual_seed(seed)
-    nn = SIZE * SIZE
-    dens = torch.rand((g, 1), generator=gen) * 0.45 + 0.15
-    u = torch.rand((g, nn), generator=gen)
-    st = torch.where(u < dens / 2, 1, torch.where(u < dens, 2, 0))
-    return remove_dead(st.to(torch.int32).to(dev))
+def host_us(fn, n):
+    """Host microseconds per call of fn: a host clock over n calls with
+    no sync inside the loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def in_turns(old, new, n):
+    """Device-only ms of the old and the new launch, timed old, new,
+    new, old; returns ([old, old], [new, new])."""
+    t = [device_ms(f, n) for f in (old, new, new, old)]
+    return [t[0], t[3]], [t[1], t[2]]
+
+
+def build_baseline(src_dir: Path):
+    """Build src_dir/{labels,chase}.cu with the port's nvcc flags (one
+    nvcc each, in parallel) into src_dir and load them with the first
+    design's C interface; returns ({name: library}, wall seconds)."""
+    from katago_torch.ops import _build
+    t0 = time.time()
+    procs = {n: subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(src_dir / f"lib{n}.so"),
+         str(src_dir / f"{n}.cu")], stderr=subprocess.PIPE, text=True)
+        for n in OLD_SIGNATURES}
+    for n, proc in procs.items():
+        err = proc.communicate()[1]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src_dir / n}.cu:\n{err}")
+    libs = {n: _build.bind(src_dir / f"lib{n}.so", sig)
+            for n, sig in OLD_SIGNATURES.items()}
+    return libs, time.time() - t0
+
+
+def old_labels(lib, vals):
+    """The first design's K2 on vals: (launch closure, output tensor)."""
+    out = torch.empty_like(vals)
+    fn = lib.connected_labels_launch
+
+    def launch():
+        rc = fn(vals.data_ptr(), out.data_ptr(), vals.shape[0], SIZE,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old connected_labels failed: {rc}")
+    return launch, out
+
+
+def old_chase(lib, args, steps):
+    """The first design's K1 on the lanes args: (launch closure, int8 output)."""
+    stones, labels, hlibs, rep, dfn, pre, active = args
+    act = active.to(torch.int8)
+    out = torch.empty((stones.shape[0],), dtype=torch.int8,
+                      device=stones.device)
+    tensors = (stones, labels, hlibs, rep, dfn, pre, act, out)
+    fn = lib.chase_lanes_launch
+
+    def launch():
+        rc = fn(*[t.data_ptr() for t in tensors], stones.shape[0], SIZE,
+                steps, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old chase_lanes failed: {rc}")
+    return launch, out
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", type=Path, default=None)
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -96,6 +200,7 @@ def main() -> int:
     from katago_torch.models import model as M
     from katago_torch.models import weights as W
     from katago_torch.ops import _build
+    from katago_torch.ops import cases as CASES
     from katago_torch.ops import chase as K1
     from katago_torch.ops import labels as K2
     from katago_torch.search import mcts
@@ -108,85 +213,137 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log(f"card: {smi}")
     dev = torch.device("cuda")
     nn = SIZE * SIZE
+    old = {}
 
     # ---- 1. build ----
     t = _build.build_all()
     log(f"phase build: both kernels built in {t:.1f} s")
+    if opts.baseline is not None:
+        old, t = build_baseline(opts.baseline)
+        log(f"phase build: old kernels from {opts.baseline} built in "
+            f"{t:.1f} s")
 
     # ---- 2. K2 vs plain ----
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    vals = torch.randint(0, 3, (GAMES, nn), generator=gen, device=dev,
-                         dtype=torch.int32)
-    extra = torch.stack([torch.ones(nn, dtype=torch.int32, device=dev),
-                         torch.zeros(nn, dtype=torch.int32, device=dev)])
-    vals_all = torch.cat([vals, extra])
-    got = K2.connected_labels(vals_all, SIZE)
-    ref = K2.connected_labels_plain(vals_all, SIZE)
-    k2_err = int((got - ref).abs().max())
-    if not torch.equal(got, ref):
-        raise AssertionError(f"K2 differs from its plain version "
-                             f"({int((got != ref).sum())} points)")
+    k2_err = 0
+    for name, vals in CASES.label_cases(SIZE, GAMES, SEED).items():
+        vals = vals.to(dev)
+        got = K2.connected_labels(vals, SIZE)
+        ref = K2.connected_labels_plain(vals, SIZE)
+        k2_err = max(k2_err, int((got - ref).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K2 differs from its plain version on "
+                                 f"{name} ({int((got != ref).sum())} points)")
+        if old:
+            launch, out = old_labels(old["labels"], vals)
+            launch()
+            if not torch.equal(out, ref):
+                raise AssertionError(f"the old K2 differs on {name}")
     # main-path shape: the boards of one leaf batch
-    boards = random_boards(GAMES, SEED + 1, dev)
-    k2_ms = gpu_time_ms(lambda: K2.connected_labels(boards, SIZE), 50)
-    k2_plain_ms = gpu_time_ms(lambda: K2.connected_labels_plain(boards, SIZE),
-                              10)
+    boards = CASES.random_boards(GAMES, SIZE, SEED + 1).to(dev)
+
+    def k2_call():
+        K2.connected_labels(boards, SIZE)
+    k2_ms = device_ms(k2_call, 200)
+    k2_host = host_us(k2_call, 1000)
+    k2_plain_ms = event_ms(lambda: K2.connected_labels_plain(boards, SIZE),
+                           10)
     k2_bytes = 2 * GAMES * nn * 4
-    k2_ops = 5 * GAMES * nn          # one propagate + jump sweep per point
+    k2_ops = 5 * GAMES * nn          # compare, link and find per point
     k2_bound = max(k2_bytes / HBM_BYTES_PER_S, k2_ops / INT_OPS_PER_S) * 1e3
-    log(f"phase K2: exact on {GAMES}+2 boards; {k2_ms:.4f} ms/call vs plain "
-        f"{k2_plain_ms:.4f} ms at [{GAMES}, {nn}], bound {k2_bound:.5f} ms")
+    log(f"phase K2: exact on every case; device-only {k2_ms:.5f} ms/call "
+        f"vs plain {k2_plain_ms:.4f} ms at [{GAMES}, {nn}], bound "
+        f"{k2_bound:.5f} ms")
+    log(f"host K2: wrapper {k2_host:.2f} us/call (host clock over 1000 "
+        f"calls, no sync)")
+    if old:
+        o, n = in_turns(old_labels(old["labels"], boards)[0], k2_call, 200)
+        log(f"turns K2 device-only ms/call: old {o[0]:.5f}, new "
+            f"{n[0]:.5f}, new {n[1]:.5f}, old {o[1]:.5f}")
 
     # ---- 3. K1 vs plain ----
-    st = random_boards(GAMES, SEED + 2, dev)
-    # ko / atari boards: a lone stone in atari inside a ko mouth
-    for i in range(0, 8):
-        b = st[i].reshape(SIZE, SIZE)
-        y, x = 3 + 2 * i, 3 + i
-        b[y - 1:y + 2, x - 1:x + 2] = 0
-        b[y, x] = 2
-        b[y - 1, x] = b[y, x - 1] = b[y, x + 1] = 1
-    st = remove_dead(st)
-    ko = torch.full((GAMES,), -1, dtype=torch.int64, device=dev)
-    ko[8:16] = torch.arange(8, 16, device=dev) * 7
-    ctx = LAD._chase_setup(st, SIZE, 16, ko)
-    k2x = 32
-    i32 = torch.int32
-    lane_args = (
-        st.repeat_interleave(k2x, 0),
-        ctx["labels"].to(i32).repeat_interleave(k2x, 0),
-        ctx["libs"].to(i32).repeat_interleave(k2x, 0),
-        ctx["reps"].reshape(-1).to(i32), ctx["defenders"].reshape(-1).to(i32),
-        ctx["premoves"].reshape(-1).to(i32), ctx["active"].reshape(-1))
     steps = LAD.default_max_steps(SIZE)
+    st, ko = CASES.chase_boards(GAMES, SIZE, SEED + 2)
+    st, ko = st.to(dev), ko.to(dev)
+    ctx = LAD._chase_setup(st, SIZE, 16, ko)
+    lane_args = LAD.chase_lane_inputs(st, ctx, 16)
     lanes = lane_args[0].shape[0]
-    got = K1.chase_lanes(*lane_args, size=SIZE, max_steps=steps)
+    k1_cases = [("main", lane_args, steps)]
+    for name, (cst, cko, mx) in CASES.chase_cases(SIZE, GAMES, SEED + 3,
+                                                  steps).items():
+        cst = cst.to(dev)
+        cctx = LAD._chase_setup(cst, SIZE, 16, cko.to(dev))
+        k1_cases.append((name, LAD.chase_lane_inputs(cst, cctx, 16), mx))
+    # each branch of K1.EVENTS must be driven by the case built for it
+    k1_need = {"dense": K1.EVENTS[:4], "ladder_cut": ("max_steps",)}
+    k1_err = 0
     plain_stats = {}
-    ref = K1.chase_lanes_plain(*lane_args, size=SIZE, max_steps=steps,
-                               stats=plain_stats)
-    k1_err = int((got.int() - ref.int()).abs().max())
-    if not torch.equal(got, ref):
-        raise AssertionError(f"K1 differs from its plain version "
-                             f"({int((got != ref).sum())} lanes)")
+    for name, args, mx in k1_cases:
+        got = K1.chase_lanes(*args, size=SIZE, max_steps=mx)
+        stats = {}
+        ref = K1.chase_lanes_plain(*args, size=SIZE, max_steps=mx,
+                                   stats=stats)
+        k1_err = max(k1_err, int((got.int() - ref.int()).abs().max()))
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K1 differs from its plain version on "
+                                 f"{name} ({int((got != ref).sum())} lanes)")
+        missed = [e for e in k1_need.get(name, ()) if not stats["events"][e]]
+        if missed:
+            raise AssertionError(f"K1 case {name} did not reach {missed}")
+        if old:
+            launch, out = old_chase(old["chase"], args, mx)
+            launch()
+            if not torch.equal(out != 0, ref):
+                raise AssertionError(f"the old K1 differs on {name}")
+        if name == "main":
+            plain_stats = stats
+            n_captured = int(ref.sum())
+        log(f"K1 case {name}: exact on {args[0].shape[0]} lanes "
+            f"({int(args[6].sum())} active, max_steps {mx}), "
+            f"{stats['lane_plies']} lane-plies, longest lane "
+            f"{stats['max_lane_plies']} plies, events {stats['events']}")
     n_active = int(lane_args[6].sum())
-    k1_ms = gpu_time_ms(lambda: K1.chase_lanes(*lane_args, size=SIZE,
-                                               max_steps=steps), 30)
-    k1_plain_ms = gpu_time_ms(lambda: K1.chase_lanes_plain(
+
+    def k1_call():
+        K1.chase_lanes(*lane_args, size=SIZE, max_steps=steps)
+    k1_ms = device_ms(k1_call, 20)
+    k1_host = host_us(k1_call, 50)
+    k1_plain_ms = event_ms(lambda: K1.chase_lanes_plain(
         *lane_args, size=SIZE, max_steps=steps), 3)
-    k1_bytes = 3 * lanes * nn * 4 + 3 * lanes * 4 + 2 * lanes
-    # lower bound: two board scans per lane-ply actually played
-    k1_ops = 2 * nn * plain_stats["lane_plies"]
+    # what the function needs: the active lanes' stones and rep, defender
+    # and premove (labels and hlibs are the stones' analysis, which the
+    # kernel recomputes), active read and out written for every lane
+    k1_bytes = n_active * (nn + 3) * 4 + 2 * lanes
+    # lower bound: two passes over the board's rows (one 32-bit op per
+    # row) per lane-ply actually played
+    k1_ops = 2 * SIZE * plain_stats["lane_plies"]
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S, k1_ops / INT_OPS_PER_S) * 1e3
     k1_bound_by = "bytes" if k1_bytes / HBM_BYTES_PER_S >= \
         k1_ops / INT_OPS_PER_S else "operations"
     log(f"phase K1: exact on {lanes} lanes ({n_active} active, "
-        f"{int(ref.sum())} captured, {plain_stats['lane_plies']} lane-plies); "
-        f"{k1_ms:.4f} ms/call vs plain {k1_plain_ms:.4f} ms, bound "
-        f"{k1_bound:.5f} ms ({k1_bound_by})")
+        f"{n_captured} captured, {plain_stats['lane_plies']} lane-plies, "
+        f"longest lane {plain_stats['max_lane_plies']} plies); device-only "
+        f"{k1_ms:.5f} ms/call vs plain {k1_plain_ms:.4f} ms, bound "
+        f"{k1_bound:.5f} ms ({k1_bound_by}: {k1_bytes} B, {k1_ops} ops)")
+    log(f"host K1: wrapper {k1_host:.2f} us/call (host clock over 50 "
+        f"calls, no sync)")
+    if old:
+        o, n = in_turns(old_chase(old["chase"], lane_args, steps)[0],
+                        k1_call, 20)
+        log(f"turns K1 device-only ms/call: old {o[0]:.5f}, new "
+            f"{n[0]:.5f}, new {n[1]:.5f}, old {o[1]:.5f}")
+    if old:
+        log("baseline: phases 4-6 skipped, no result line")
+        return 0
 
     # ---- 4. net forward ----
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     cfg = MC.get_config(MODEL)
     model = W.init_weights(M.KataGoModel(cfg, SIZE, torch.bfloat16),
                            seed=SEED).to(dev).eval()
@@ -201,7 +358,7 @@ def main() -> int:
             raise AssertionError(f"net output {k} is not finite")
     assert out["policy_logits"].shape == (GAMES, 6, nn + 1)
     with torch.no_grad():
-        net_ms = gpu_time_ms(lambda: model(spatial, glob), 10)
+        net_ms = event_ms(lambda: model(spatial, glob), 10)
     log(f"phase net: {MODEL} bf16 batch {GAMES} finite; {net_ms:.3f} ms "
         f"per forward")
 
@@ -253,10 +410,6 @@ def main() -> int:
         f"chase_lanes={K1.launches} connected_labels={K2.launches}")
 
     # ---- 6. report ----
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
     log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} "
         f"(search 1), {GAMES * VISITS / dt2:.1f} (search 2)")
     kernels = [
@@ -274,7 +427,7 @@ def main() -> int:
          "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >=
          k2_ops / INT_OPS_PER_S else "operations", "library_ms": None},
     ]
-    print(smi.stdout.strip(), flush=True)
+    print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

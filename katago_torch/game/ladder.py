@@ -94,6 +94,20 @@ def _chase_setup(stones, size: int, max_chains: int, ko):
                 active=torch.cat([act_a, act_b], 1))
 
 
+def chase_lane_inputs(stones, ctx, max_chains: int):
+    """chase_lanes' positional inputs for the 2 * max_chains lanes of
+    each board that _chase_setup built (board-major)."""
+    k2 = 2 * max_chains
+    i32 = torch.int32
+    return (stones.to(i32).repeat_interleave(k2, dim=0),
+            ctx["labels"].to(i32).repeat_interleave(k2, dim=0),
+            ctx["libs"].to(i32).repeat_interleave(k2, dim=0),
+            ctx["reps"].reshape(-1).to(i32),
+            ctx["defenders"].reshape(-1).to(i32),
+            ctx["premoves"].reshape(-1).to(i32),
+            ctx["active"].reshape(-1))
+
+
 def _chase_finish(ctx, results, size: int, max_chains: int) -> LadderResult:
     """Mark laddered chains / working attacker moves from lane verdicts
     (results bool[G, 2K])."""
@@ -130,18 +144,10 @@ def ladder_map_chase_batch(stones, size: int, max_chains: int = 16,
         ko_loc = torch.full((g,), -1, dtype=torch.int64,
                             device=stones.device)
     ctx = _chase_setup(stones, size, max_chains, ko_loc)
-    k2 = 2 * max_chains
-    i32 = torch.int32
-    cap = K1.chase_lanes(
-        stones.to(i32).repeat_interleave(k2, dim=0),
-        ctx["labels"].to(i32).repeat_interleave(k2, dim=0),
-        ctx["libs"].to(i32).repeat_interleave(k2, dim=0),
-        ctx["reps"].reshape(-1).to(i32),
-        ctx["defenders"].reshape(-1).to(i32),
-        ctx["premoves"].reshape(-1).to(i32),
-        ctx["active"].reshape(-1),
-        size=size, max_steps=max_steps)
-    return _chase_finish(ctx, cap.reshape(g, k2), size, max_chains)
+    cap = K1.chase_lanes(*chase_lane_inputs(stones, ctx, max_chains),
+                         size=size, max_steps=max_steps)
+    return _chase_finish(ctx, cap.reshape(g, 2 * max_chains), size,
+                         max_chains)
 
 
 def ladder_map_chase(stones, size: int, max_chains: int = 16,

@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -29,7 +31,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of the nvcc to build with."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and (Path(home) / "bin" / "nvcc").exists():
         return str(Path(home) / "bin" / "nvcc")
@@ -55,7 +58,7 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
@@ -73,20 +76,37 @@ def build_all(names=("labels", "chase")) -> float:
     return time.time() - t0
 
 
+def bind(path, signatures: dict) -> ctypes.CDLL:
+    """Load the library at path; signatures maps each C function to its
+    argtypes (restype is int, the CUDA error code)."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
 def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (if needed) and load lib<name>; signatures maps each C
-    function to its argtypes (restype is int, the CUDA error code)."""
+    """Build (if needed) and load lib<name>."""
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[name] = bind(build(name), signatures)
         return _libs[name]
 
 
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {what} failed with error {rc}")
+
+
+def launch(fn, dev: torch.device, what: str, *args) -> None:
+    """Call the C entry point fn(*args, stream) on dev's current stream and
+    raise if the launch failed. The device is switched only when dev is
+    not the current one (a kernel launches on the current device)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check(rc, what)

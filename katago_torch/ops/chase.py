@@ -11,18 +11,21 @@ exactly by `_chase_apply`; at most 4 captured stones per move are
 tracked exactly (more bails the lane as escaped).
 
 `chase_lanes` launches the CUDA kernel ops/csrc/chase.cu for CUDA
-tensors (one warp per lane, the lane's board in shared memory as int8
-stones and int16 labels / liberties, warp ballots and min-reductions for
-the per-board scans, each warp exiting when its own lane is done) and
-runs `chase_lanes_plain` — the same algorithm as batched torch ops over
-lanes — for CPU tensors.
+tensors and runs `chase_lanes_plain` — the same algorithm as batched
+torch ops over lanes — for CPU tensors. The kernel gives each lane one
+warp and holds the lane's board as row bitmasks in registers (row y in
+thread y): neighbour sets by shifts and shuffles, first set and counts by
+__ffs / __popc and warp reductions, chains by flood fill. It reads only
+`stones`: chain identity and liberties come from the masks, which is why
+labels and hlibs must be the exact analysis of stones (see chase_lanes).
 
-Bound on an H100: the inputs are 3 x L x NN int32 (L = 4096 lanes at the
-production 19x19 shape: 17.7 MB, about 5 us of HBM time at 3.35 TB/s)
-but the kernel reads only the active lanes' boards, once, and then runs
-a data-dependent loop of dependent warp scans per ply; it is latency
-bound by its longest lane, which is why every lane is an independent
-warp that exits early rather than a lockstep batch.
+Bound on an H100: the function needs only the active lanes' stones
+(labels and hlibs are their analysis), read once: about 3000 of the
+L = 4096 lanes at the production 19x19 shape, 4.4 MB, about 1.3 us of
+HBM time at 3.35 TB/s. The kernel then runs a data-dependent loop of
+dependent warp collectives per ply; it is latency bound by its longest
+lane, which is why every lane is an independent warp that exits early
+rather than a lockstep batch.
 """
 
 from __future__ import annotations
@@ -39,10 +42,22 @@ launches = 0          # kernel launches since the last reset (chip_smoke)
 K_ADJ = 3   # defender capture candidates examined per ply
 C_CAP = 4   # captured stones tracked exactly per move
 
-_SIGNATURES = {"chase_lanes_launch": [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+# Branches of the chase a kernel must take exactly as the reference does,
+# counted per lane by chase_lanes_plain's stats: the defender's chosen move
+# is suicide (captured); the ko left by the defender's last move bans one
+# of the attacker's liberties; a move would capture more than C_CAP stones
+# (escaped); both of the attacker's liberties are ko mouths (the double-ko
+# test runs in full); the lane is still running at max_steps (not
+# captured). The attacker's moves never leave a ko (it only plays a
+# liberty with an empty or own neighbour), so no ko ever bans a defender
+# move, and neither a double ko nor an illegal attacker move can decide a
+# lane; the kernel keeps those branches as the reference has them.
+EVENTS = ("suicide_extension", "ko_ban", "overflow", "double_ko_shape",
+          "max_steps")
+
+_SIGNATURES = {"chase_lanes_launch": [ctypes.c_void_p] * 6
+               + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+_launch = None        # the C entry point, resolved at first use
 
 
 def reset_launches() -> None:
@@ -190,7 +205,10 @@ def chase_lanes_plain(stones, labels, hlibs, rep, defender, premove, active,
                       stats: dict | None = None) -> torch.Tensor:
     """Plain torch chase over all lanes (ladder.py _chase_one, batched):
     bool[L] captured. stats, when given, receives "lane_plies": the plies
-    played summed over lanes (the data-dependent work of the solve)."""
+    played summed over lanes (the data-dependent work of the solve), and
+    "max_lane_plies": the plies of the longest lane (which sets the time
+    of a kernel that gives each lane its own warp), and "events": for each
+    branch in EVENTS, the number of lanes that took it."""
     nn = size * size
     dev = stones.device
     lanes = stones.shape[0]
@@ -217,7 +235,11 @@ def chase_lanes_plain(stones, labels, hlibs, rep, defender, premove, active,
     done = ~live
     captured = torch.zeros_like(done)
     ply = 0
-    lane_plies = 0
+    plies = torch.zeros((lanes,), dtype=torch.int64, device=dev)
+    track = stats is not None      # tally EVENTS (extra launches per ply)
+    if track:
+        ev = {name: torch.zeros_like(done) for name in EVENTS}
+        ev["overflow"] |= active & has_pre & plegal & pov
 
     def entry():
         empty = stones == B.EMPTY
@@ -235,8 +257,8 @@ def chase_lanes_plain(stones, labels, hlibs, rep, defender, premove, active,
 
     while ply < max_steps and not bool(done.all()):
         # ---------------- defender ply ----------------
-        if stats is not None:
-            lane_plies += int((~done).sum())
+        if track:
+            plies += ~done
         empty, gone, def_mask, dlibs, libpts = entry()
         term_cap = gone
         term_esc = ~gone & ((ko >= 0) | (dlibs >= 2))
@@ -271,6 +293,10 @@ def chase_lanes_plain(stones, labels, hlibs, rep, defender, premove, active,
             stones, labels, hlibs, best_move, defender, size)
         new_cap = term_cap | ~def_has | ~legal
         new_esc = term_esc | (~new_cap & ov)
+        if track:
+            moved = ~done & ~term_cap & def_has
+            ev["suicide_extension"] |= moved & ~legal
+            ev["overflow"] |= moved & legal & ~term_esc & ov
         terminal = (new_cap | new_esc) & ~done
         advance = ~terminal & ~done
         stones, labels, hlibs, ko = commit(advance, ns, nl, nh, nko)
@@ -281,8 +307,8 @@ def chase_lanes_plain(stones, labels, hlibs, rep, defender, premove, active,
             break
 
         # ---------------- attacker ply ----------------
-        if stats is not None:
-            lane_plies += int((~done).sum())
+        if track:
+            plies += ~done
         empty, gone, def_mask, dlibs, libpts = entry()
         term_cap = gone | (dlibs <= 1)
         term_esc = ~gone & (dlibs >= 3)
@@ -337,6 +363,12 @@ def chase_lanes_plain(stones, labels, hlibs, rep, defender, premove, active,
 
         ns, nl, nh, nko, legal, ov = chase_apply(
             stones, labels, hlibs, att_move, attacker, size)
+        if track:
+            runs = ~done & ~term_cap & ~term_esc
+            ev["ko_ban"] |= runs & (ko >= 0) & ((l2[:, 0] == ko)
+                                                | (l2[:, 1] == ko))
+            ev["overflow"] |= runs & ov
+            ev["double_ko_shape"] |= runs & double_ko
         new_cap = term_cap
         new_esc = term_esc | (~term_cap & (both_ref | ov))
         new_cap = new_cap | (~new_esc & double_ko & ~term_esc)
@@ -346,8 +378,11 @@ def chase_lanes_plain(stones, labels, hlibs, rep, defender, premove, active,
         captured = torch.where(terminal, new_cap, captured)
         done = done | terminal
         ply += 1
-    if stats is not None:
-        stats["lane_plies"] = lane_plies
+    if track:
+        stats["lane_plies"] = int(plies.sum())
+        stats["max_lane_plies"] = int(plies.max()) if lanes else 0
+        ev["max_steps"] = ~done
+        stats["events"] = {k: int(v.sum()) for k, v in ev.items()}
     return captured & done & active
 
 
@@ -361,7 +396,12 @@ def chase_lanes(stones, labels, hlibs, rep, defender, premove, active, *,
     stones/labels/hlibs: int32[L, NN] initial per-lane board analysis
     (labels: exact stone-chain labels, empty points their own index;
     hlibs: chain liberty counts, exact at each chain's head).
-    rep/defender/premove: int32[L]; active: bool[L]. Returns bool[L]."""
+    rep/defender/premove: int32[L]; active: bool[L]. Returns bool[L].
+
+    The CUDA kernel reads only stones and derives chains and liberties
+    from it, so it assumes what _chase_setup guarantees on the main path:
+    labels and hlibs are the exact analysis of stones, rep is a stone of
+    the defender's colour and premove is -1 or an empty point."""
     nn = size * size
     lanes = stones.shape[0]
     for name, t in (("stones", stones), ("labels", labels),
@@ -386,22 +426,17 @@ def chase_lanes(stones, labels, hlibs, rep, defender, premove, active, *,
                                  max_steps=max_steps)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if nn > 32 * 32:
+    if size > 32:
         raise ValueError("the CUDA kernel takes boards up to 32x32 (one "
-                         "32-bit mask of a lane's points per thread)")
-    out = torch.empty((lanes,), dtype=torch.int8, device=dev)
+                         "32-bit row mask per thread of a warp)")
+    out = torch.empty((lanes,), dtype=torch.bool, device=dev)
     if lanes == 0:
-        return out.bool()
-    args = [t.contiguous() for t in (stones, labels, hlibs, rep, defender,
-                                     premove)]
-    act = active.to(torch.int8).contiguous()
-    lib = _build.load("chase", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.chase_lanes_launch(*[a.data_ptr() for a in args],
-                                    act.data_ptr(), out.data_ptr(), lanes,
-                                    size, max_steps, stream)
-    _build.check(rc, "chase_lanes")
-    global launches
+        return out
+    global _launch, launches
+    if _launch is None:
+        _launch = _build.load("chase", _SIGNATURES).chase_lanes_launch
+    ins = [t.contiguous() for t in (stones, rep, defender, premove, active)]
+    _build.launch(_launch, dev, "chase_lanes", *[t.data_ptr() for t in ins],
+                  out.data_ptr(), lanes, size, max_steps)
     launches += 1
-    return out != 0
+    return out

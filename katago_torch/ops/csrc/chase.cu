@@ -1,521 +1,395 @@
-// K1: greedy chase-ladder solver, one warp per lane.
+// K1: greedy chase-ladder solver, one warp per lane, the lane's board held
+// as row bitmasks in registers.
 //
 // Replaces katago_tpu/ops/chase_pallas.py::chase_lanes (body _kernel_body);
 // the semantic source is katago_tpu/game/ladder.py _chase_one / _chase_apply
 // / _would_be_ko_capture_at, ported from that algorithm rather than from the
 // Pallas layout. Every tie-break matches bit for bit: lowest flat index first
 // ("first set" and the two lowest liberties), the defender's extension
-// before its (<= 3) liberty-gaining captures with captures winning ties, and
-// ko bans left by the last move only.
+// before its (<= 3) liberty-gaining captures with captures winning ties, ko
+// bans left by the last move only, a defender extension that is suicide
+// counting as captured even after an escape, an attacker move reported
+// illegal still played, and more than C_CAP = 4 captured stones bailing the
+// lane as escaped.
 //
-// Bound on an H100: a call's inputs are 3 x L x NN int32 (17.7 MB at the
-// production L = 4096, NN = 361: about 5 us at 3.35 TB/s), but inactive
-// lanes return at once and an active lane reads its board once; the rest is
-// a data-dependent loop of dependent warp-wide scans (about 20 per ply, up to
-// 4*size+14 plies), so a call is bound by the latency of its longest lane.
-// The design does three things about it: each lane's board lives in shared
-// memory for the whole solve (int8 stones, int16 labels and head liberties,
-// 361 x 5 B = 1.8 KB, the narrowing of ladder.py:818-822); every per-board
-// reduction (first set, counts, arr[loc] reads) is a warp collective
-// (__reduce_min_sync / __reduce_add_sync / broadcast shared reads) with no
-// block-wide barrier; and each warp exits as soon as its own lane is done,
-// so one long ladder stalls no other lane. No padding of labels is needed:
-// every label compare is on on-board points.
+// Bound on an H100: the function needs only the active lanes' stones
+// (labels and hlibs are their analysis), read once: about 3000 of the main
+// path's L = 4096 lanes at NN = 361, 4.4 MB, about 1.3 us at 3.35 TB/s.
+// The rest is a data-dependent loop of dependent board queries (about 20-40
+// per ply, up to 4*size+14 plies), so a call is bound by the latency of its
+// longest lane: the number of dependent steps per query is what the design
+// has to cut. The first design kept the board in shared memory and answered
+// each query with a strided scan of all 361 points (12 deep, each point
+// testing up to four neighbours through shared loads): thousands of
+// dependent loads per ply.
+//
+// This design holds the lane's position as bitmasks: row y of the board,
+// `size` bits, in thread y of the warp (threads past the board hold 0) —
+// the attacker's stones A, the defender's D, and the defender chain C that
+// contains the lane's representative stone, kept exactly from move to move
+// (a defender move that touches C makes C its merged chain; an attacker move
+// removes C's stones if it captures them). Then a query is a few
+// instructions and one or two warp collectives:
+//   - 4-neighbour dilation: (r << 1) | (r >> 1) within the row, OR'd with
+//     the rows above and below from __shfl_up_sync / __shfl_down_sync;
+//   - first set: __reduce_min_sync of y * size + __ffs(r) - 1, the lowest
+//     flat index, which keeps every tie-break;
+//   - counts: __reduce_add_sync of __popc(r);
+//   - a chain's mask: flood fill from a seed, each round filling whole
+//     horizontal runs at once ((((c + s) ^ c) | s) & c, and the same on the
+//     bit-reversed row) and stepping one row up and down, until __any_sync
+//     sees no change; so a round costs two shuffles and a vote, and the
+//     rounds follow the chain's turns between rows, not its length;
+//   - liberties of a chain: popc(dilate(chain) & empty).
+// No labels and no liberty counts are carried: a chain's identity is its
+// mask, and its liberties are counted when needed, so the kernel reads
+// only `stones` and needs no shared memory. Each warp returns as soon as
+// its own lane is decided, so one long ladder stalls no other lane. Tensor
+// cores, TMA and shared-memory tiling have nothing to do here: the work is
+// a chain of small dependent bit operations, whose latency is all there is.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int EMPTY = 0;
-constexpr int WALL = 3;
 constexpr int K_ADJ = 3;
 constexpr int C_CAP = 4;
 constexpr int WARPS = 4;  // lanes per block
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Board {
-  int8_t* st;
-  int16_t* lab;
-  int16_t* hl;
-  int size;
-  int nn;
+// The lane's geometry as seen by one thread: y is the thread's row, `row`
+// the bits of a full row there (0 past the board's edge).
+struct Geo {
+  int size, nn, y;
+  unsigned row;
 };
 
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+__device__ __forceinline__ bool any(unsigned r) {
+  return __any_sync(FULL, r != 0);
+}
 
-// neighbour of p in the JAX shift4 order (p+size, p-size, p+1, p-1); -1 when
-// off-board
-__device__ __forceinline__ int nbr(int p, int d, int size) {
-  int y = p / size;
-  int x = p - y * size;
-  switch (d) {
-    case 0: return y + 1 < size ? p + size : -1;
-    case 1: return y > 0 ? p - size : -1;
-    case 2: return x + 1 < size ? p + 1 : -1;
-    default: return x > 0 ? p - 1 : -1;
+__device__ __forceinline__ int count(unsigned r) {
+  return __reduce_add_sync(FULL, __popc(r));
+}
+
+// lowest flat index set in the board mask, nn when none
+__device__ __forceinline__ int first(const Geo& g, unsigned r) {
+  return __reduce_min_sync(FULL, r ? g.y * g.size + __ffs(r) - 1 : g.nn);
+}
+
+// this thread's row of the one-point mask of p (0 <= p < nn)
+__device__ __forceinline__ unsigned bit(const Geo& g, int p) {
+  const int py = p / g.size;
+  return py == g.y ? 1u << (p - py * g.size) : 0u;
+}
+
+// the 4-neighbours of p (p itself excluded), without a shuffle
+__device__ __forceinline__ unsigned dil_pt(const Geo& g, int p) {
+  const int py = p / g.size;
+  const unsigned b = 1u << (p - py * g.size);
+  unsigned r = 0;
+  if (g.y == py) r = (b << 1) | (b >> 1);
+  if (g.y == py - 1 || g.y == py + 1) r = b;
+  return r & g.row;
+}
+
+// rows y-1 and y+1 of a mask, 0 past the warp's ends
+__device__ __forceinline__ unsigned vert(const Geo& g, unsigned r) {
+  unsigned up = __shfl_up_sync(FULL, r, 1);
+  unsigned dn = __shfl_down_sync(FULL, r, 1);
+  if (g.y == 0) up = 0;
+  if (g.y == 31) dn = 0;
+  return up | dn;
+}
+
+// 4-neighbour dilation (the mask's own points only where they neighbour
+// another point of it)
+__device__ __forceinline__ unsigned dil(const Geo& g, unsigned r) {
+  return ((r << 1) | (r >> 1) | vert(g, r)) & g.row;
+}
+
+// bits of c in a run (of c) that holds a bit of s at or below them
+__device__ __forceinline__ unsigned run_up(unsigned c, unsigned s) {
+  return (((c + s) ^ c) | s) & c;
+}
+
+// the runs of c that hold a bit of s, whole
+__device__ __forceinline__ unsigned hfill(unsigned c, unsigned s) {
+  s &= c;
+  return run_up(c, s) | __brev(run_up(__brev(c), __brev(s)));
+}
+
+// the union of the chains of colour c that hold a bit of seed
+__device__ unsigned flood(const Geo& g, unsigned c, unsigned seed) {
+  if (!any(seed & c)) return 0;
+  unsigned m = hfill(c, seed);
+  while (true) {
+    const unsigned nm = hfill(c, m | vert(g, m));
+    if (!__any_sync(FULL, nm != m)) return m;
+    m = nm;
   }
 }
 
-template <class F>
-__device__ __forceinline__ bool adj_to(int p, int size, F f) {
-  int y = p / size;
-  int x = p - y * size;
-  return (y + 1 < size && f(p + size)) || (y > 0 && f(p - size)) ||
-         (x + 1 < size && f(p + 1)) || (x > 0 && f(p - 1));
-}
-
-// lowest p with f(p), nn if none (warp-uniform result)
-template <class F>
-__device__ __forceinline__ int wfirst(int nn, F f) {
-  int best = nn;
-  for (int p = lane_id(); p < nn; p += 32) {
-    if (f(p)) {
-      best = p;
-      break;
-    }
-  }
-  return __reduce_min_sync(FULL, best);
-}
-
-template <class F>
-__device__ __forceinline__ int wcount(int nn, F f) {
-  int c = 0;
-  for (int p = lane_id(); p < nn; p += 32) c += f(p) ? 1 : 0;
-  return __reduce_add_sync(FULL, c);
-}
-
-// _chase_apply's outcome, computed from the pre-move state without writing
+// _chase_apply's outcome for the player whose stones are P (opponent O, empty
+// E) at m, from the pre-move position. kP / kO: a whole chain of P's / O's
+// colour already known (or 0), used instead of flooding it again.
 struct Move {
-  int m, player, opp;
-  int nbr_l[4];
-  bool own_sel[4], cap_sel[4], nbr_stone[4];
-  int merged, my_libs, num_cap, ko_loc;
-  bool legal, overflow;
+  unsigned mine;      // the mover's chain after the move (m included)
+  unsigned cap;       // the stones it captures
+  int my_libs, ko_loc;
+  bool legal, overflow, joins_kp;
 };
 
-__device__ Move analyze(const Board& b, int m, int player) {
+__device__ Move analyze(const Geo& g, unsigned P, unsigned O, unsigned E,
+                        int m, unsigned kP, unsigned kO) {
   Move mv;
-  const int nn = b.nn;
-  mv.m = m;
-  mv.player = player;
-  mv.opp = 3 - player;
-  mv.merged = m;
-  bool own_any = false;
-  for (int d = 0; d < 4; ++d) {
-    int q = nbr(m, d, b.size);
-    int s = q < 0 ? WALL : b.st[q];
-    int l = q < 0 ? nn : b.lab[q];
-    int lc = l < 0 ? 0 : (l > nn - 1 ? nn - 1 : l);
-    int libs = b.hl[lc];
-    mv.nbr_l[d] = l;
-    mv.nbr_stone[d] = s == 1 || s == 2;
-    mv.own_sel[d] = s == player;
-    mv.cap_sel[d] = s == mv.opp && libs == 1;
-    if (mv.own_sel[d]) mv.merged = min(mv.merged, l);
-    own_any = own_any || mv.own_sel[d];
+  const unsigned mb = bit(g, m);
+  const unsigned nb = dil_pt(g, m);
+  mv.joins_kp = any(nb & kP);
+  const bool own_any = any(nb & P);
+  const unsigned rest = P & ~kP;
+  mv.mine = mb | (mv.joins_kp ? kP : 0u) | flood(g, rest, nb);
+  // adjacent opponent chains with a single liberty (which is m)
+  unsigned cap = 0;
+  unsigned t = nb & O;
+  while (any(t)) {
+    const unsigned qb = bit(g, first(g, t));
+    const unsigned ch = any(kO & qb) ? kO : flood(g, O, qb);
+    if (count(dil(g, ch) & E) == 1) cap |= ch;
+    t &= ~ch;
   }
-  const Move& c = mv;
-  auto own_mask = [&](int p) {
-    if (b.st[p] != c.player) return false;
-    int l = b.lab[p];
-    return (c.own_sel[0] && l == c.nbr_l[0]) ||
-           (c.own_sel[1] && l == c.nbr_l[1]) ||
-           (c.own_sel[2] && l == c.nbr_l[2]) ||
-           (c.own_sel[3] && l == c.nbr_l[3]);
-  };
-  auto cap_mask = [&](int p) {
-    if (b.st[p] != c.opp) return false;
-    int l = b.lab[p];
-    return (c.cap_sel[0] && l == c.nbr_l[0]) ||
-           (c.cap_sel[1] && l == c.nbr_l[1]) ||
-           (c.cap_sel[2] && l == c.nbr_l[2]) ||
-           (c.cap_sel[3] && l == c.nbr_l[3]);
-  };
-  auto my_mask = [&](int p) { return p == c.m || own_mask(p); };
-  auto new_empty = [&](int p) {
-    return p != c.m && (b.st[p] == EMPTY || cap_mask(p));
-  };
-  mv.my_libs = wcount(nn, [&](int p) {
-    return new_empty(p) && adj_to(p, b.size, my_mask);
-  });
-  mv.num_cap = wcount(nn, cap_mask);
-  int first_cap = wfirst(nn, cap_mask);
-  bool is_ko = mv.num_cap == 1 && !own_any && mv.my_libs == 1;
-  mv.ko_loc = is_ko ? first_cap : -1;
-  mv.legal = b.st[m] == EMPTY && mv.my_libs > 0;
-  mv.overflow = mv.num_cap > C_CAP;
+  mv.cap = cap;
+  mv.my_libs = count(dil(g, mv.mine) & (E | cap) & ~mb);
+  const int num_cap = count(cap);
+  mv.ko_loc = (num_cap == 1 && !own_any && mv.my_libs == 1) ? first(g, cap)
+                                                             : -1;
+  mv.legal = any(E & mb) && mv.my_libs > 0;
+  mv.overflow = num_cap > C_CAP;
   return mv;
 }
 
-// apply an analyzed move in place (labels and head liberties exact)
-__device__ void commit(const Board& b, const Move& mv) {
-  const int nn = b.nn;
-  const int lane = lane_id();
-  const Move& c = mv;
-  auto own_mask = [&](int p) {
-    if (b.st[p] != c.player) return false;
-    int l = b.lab[p];
-    return (c.own_sel[0] && l == c.nbr_l[0]) ||
-           (c.own_sel[1] && l == c.nbr_l[1]) ||
-           (c.own_sel[2] && l == c.nbr_l[2]) ||
-           (c.own_sel[3] && l == c.nbr_l[3]);
-  };
-  auto cap_mask = [&](int p) {
-    if (b.st[p] != c.opp) return false;
-    int l = b.lab[p];
-    return (c.cap_sel[0] && l == c.nbr_l[0]) ||
-           (c.cap_sel[1] && l == c.nbr_l[1]) ||
-           (c.cap_sel[2] && l == c.nbr_l[2]) ||
-           (c.cap_sel[3] && l == c.nbr_l[3]);
-  };
-  // the (up to C_CAP) lowest captured points, from the pre-move state
-  int cap_pts[C_CAP];
-  int prev = -1;
-  for (int t = 0; t < C_CAP; ++t) {
-    int pv = prev;
-    cap_pts[t] = wfirst(nn, [&](int p) { return p > pv && cap_mask(p); });
-    prev = cap_pts[t] < nn ? cap_pts[t] : nn;
-  }
-  // masks of this lane's points, then the writes
-  unsigned my_bits = 0, cap_bits = 0;
-  for (int p = lane, i = 0; p < nn; p += 32, ++i) {
-    if (p == c.m || own_mask(p)) my_bits |= 1u << i;
-    if (cap_mask(p)) cap_bits |= 1u << i;
-  }
-  __syncwarp();
-  for (int p = lane, i = 0; p < nn; p += 32, ++i) {
-    bool mine = (my_bits >> i) & 1u;
-    bool capd = (cap_bits >> i) & 1u;
-    if (p == c.m) {
-      b.st[p] = (int8_t)c.player;
-    } else if (capd) {
-      b.st[p] = EMPTY;
-    }
-    if (mine) {
-      b.lab[p] = (int16_t)c.merged;
-    } else if (capd) {
-      b.lab[p] = (int16_t)p;
-    }
-  }
-  __syncwarp();
-  if (lane == 0) {
-    // (a) surviving chains adjacent to m lose the liberty m
-    for (int i = 0; i < 4; ++i) {
-      bool dup = false;
-      for (int j = 0; j < i; ++j)
-        dup = dup || (c.nbr_l[j] == c.nbr_l[i] && c.nbr_stone[j]);
-      if (c.nbr_stone[i] && !dup && !c.own_sel[i] && !c.cap_sel[i])
-        b.hl[c.nbr_l[i]] -= 1;
-    }
-    // (b) chains bordering captured points gain those liberties
-    for (int t = 0; t < C_CAP; ++t) {
-      int cp = cap_pts[t];
-      if (cp >= nn) continue;
-      int cl[4];
-      bool cs[4];
-      for (int d = 0; d < 4; ++d) {
-        int q = nbr(cp, d, b.size);
-        int s = q < 0 ? WALL : b.st[q];
-        cl[d] = q < 0 ? nn : b.lab[q];
-        cs[d] = s == 1 || s == 2;
-      }
-      for (int i = 0; i < 4; ++i) {
-        bool dup = false;
-        for (int j = 0; j < i; ++j) dup = dup || (cl[j] == cl[i] && cs[j]);
-        if (cs[i] && !dup && cl[i] != c.merged) b.hl[cl[i]] += 1;
-      }
-    }
-    // (c) the mover's merged chain, recounted from its mask
-    b.hl[c.merged] = (int16_t)c.my_libs;
-  }
-  __syncwarp();
-}
-
-// wouldBeKoCapture(loc, attacker): all neighbours defender-or-wall and
-// exactly one adjacent single-stone defender chain in atari
-__device__ bool would_be_ko_capture(const Board& b, int loc_raw,
-                                    int defender) {
-  const int nn = b.nn;
-  int loc = loc_raw < 0 ? 0 : (loc_raw > nn - 1 ? nn - 1 : loc_raw);
-  int ns[4], nl[4];
-  bool all_def = true;
-  for (int d = 0; d < 4; ++d) {
-    int q = nbr(loc, d, b.size);
-    ns[d] = q < 0 ? WALL : b.st[q];
-    nl[d] = q < 0 ? nn : b.lab[q];
-    all_def = all_def && (ns[d] == defender || ns[d] == WALL);
-  }
+// wouldBeKoCapture(loc, attacker): every neighbour the defender's or the
+// wall, and exactly one adjacent defender chain in atari, a single stone
+__device__ bool would_be_ko_capture(const Geo& g, unsigned D, unsigned E,
+                                    unsigned C, int loc_raw) {
+  const int loc = loc_raw < 0 ? 0 : min(loc_raw, g.nn - 1);
+  const unsigned nb = dil_pt(g, loc);
+  if (any(nb & ~D)) return false;
   int cap_cnt = 0, single_cnt = 0;
-  for (int i = 0; i < 4; ++i) {
-    bool dup = false;
-    for (int j = 0; j < i; ++j) dup = dup || (nl[j] == nl[i] && ns[j] == defender);
-    bool isdef = ns[i] == defender && !dup;
-    int lc = nl[i] < 0 ? 0 : (nl[i] > nn - 1 ? nn - 1 : nl[i]);
-    bool in_atari = b.hl[lc] == 1;
-    if (isdef && in_atari) {
-      int li = nl[i];
-      int sz = wcount(nn, [&](int p) {
-        return b.lab[p] == li && b.st[p] == defender;
-      });
+  unsigned t = nb & D;
+  while (any(t)) {
+    const unsigned qb = bit(g, first(g, t));
+    const unsigned ch = any(C & qb) ? C : flood(g, D, qb);
+    t &= ~ch;
+    if (count(dil(g, ch) & E) == 1) {
       cap_cnt += 1;
-      single_cnt += sz == 1 ? 1 : 0;
+      single_cnt += count(ch) == 1 ? 1 : 0;
     }
   }
-  return loc_raw < nn && all_def && cap_cnt == 1 && single_cnt == 1;
-}
-
-__device__ int imm_libs(const Board& b, int p) {
-  int n = 0;
-  for (int d = 0; d < 4; ++d) {
-    int q = nbr(p, d, b.size);
-    n += (q >= 0 && b.st[q] == EMPTY) ? 1 : 0;
-  }
-  return n;
+  return loc_raw < g.nn && cap_cnt == 1 && single_cnt == 1;
 }
 
 __global__ void chase_kernel(const int* __restrict__ stones,
-                             const int* __restrict__ labels,
-                             const int* __restrict__ hlibs,
                              const int* __restrict__ rep_in,
                              const int* __restrict__ def_in,
                              const int* __restrict__ pre_in,
-                             const int8_t* __restrict__ active,
-                             int8_t* __restrict__ out, int lanes, int size,
-                             int max_steps, int stride) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = lane_id();
-  const int L = blockIdx.x * WARPS + warp;
+                             const uint8_t* __restrict__ active,
+                             uint8_t* __restrict__ out, int lanes, int size,
+                             int max_steps) {
+  const int lane = threadIdx.x & 31;
+  const int L = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (L >= lanes) return;
   if (!active[L]) {
     if (lane == 0) out[L] = 0;
     return;
   }
-  const int nn = size * size;
-  const int nn_al = (nn + 7) & ~7;
-  unsigned char* base = smem + (size_t)warp * stride;
-  Board b;
-  b.lab = (int16_t*)base;
-  b.hl = (int16_t*)(base + 2 * nn_al);
-  b.st = (int8_t*)(base + 4 * nn_al);
-  b.size = size;
-  b.nn = nn;
-  const long off = (long)L * nn;
-  for (int p = lane; p < nn; p += 32) {
-    b.st[p] = (int8_t)stones[off + p];
-    b.lab[p] = (int16_t)labels[off + p];
-    b.hl[p] = (int16_t)hlibs[off + p];
-  }
-  __syncwarp();
-
-  const int rep = rep_in[L];
+  Geo g;
+  g.size = size;
+  g.nn = size * size;
+  g.y = lane;
+  g.row = lane < size ? (size == 32 ? FULL : (1u << size) - 1u) : 0u;
+  const int nn = g.nn;
   const int def = def_in[L];
   const int att = 3 - def;
+  const int rep = rep_in[L];
   const int pre = pre_in[L];
+
+  // the board as flat bitmaps by ballot (thread k keeps word k), then each
+  // thread cuts its row out of the two words that hold it
+  unsigned wd = 0, wa = 0;
+  const long off = (long)L * nn;
+  for (int k = 0; k * 32 < nn; ++k) {
+    const int p = k * 32 + lane;
+    const int s = p < nn ? stones[off + p] : 0;
+    const unsigned bd = __ballot_sync(FULL, s == def);
+    const unsigned ba = __ballot_sync(FULL, s == att);
+    if (lane == k) {
+      wd = bd;
+      wa = ba;
+    }
+  }
+  const int start = lane < size ? lane * size : 0;
+  const int w0 = start >> 5;
+  const int w1 = min(w0 + 1, 31);
+  const int sh = start & 31;
+  const unsigned d0 = __shfl_sync(FULL, wd, w0);
+  const unsigned d1 = __shfl_sync(FULL, wd, w1);
+  const unsigned a0 = __shfl_sync(FULL, wa, w0);
+  const unsigned a1 = __shfl_sync(FULL, wa, w1);
+  unsigned D = __funnelshift_r(d0, d1, sh) & g.row;
+  unsigned A = __funnelshift_r(a0, a1, sh) & g.row;
+  const unsigned repb = bit(g, rep);
+  unsigned C = flood(g, D, repb);
+
   if (pre >= 0) {
-    Move mv = analyze(b, pre > nn - 1 ? nn - 1 : pre, att);
+    const Move mv = analyze(g, A, D, g.row & ~(A | D), min(pre, nn - 1), 0u,
+                            C);
     if (!mv.legal || mv.overflow) {
       if (lane == 0) out[L] = 0;
       return;
     }
-    commit(b, mv);
+    A |= mv.mine;
+    D &= ~mv.cap;
+    C &= ~mv.cap;
   }
 
   int ko = -1;
-  bool done = false, captured = false;
+  bool captured = false;
   int ply = 0;
   while (ply < max_steps) {
     // =============== defender ply ===============
     {
-      const int lrep = b.lab[rep];
-      const bool gone = b.st[rep] != def;
-      if (gone) {
-        done = true;
+      if (!any(D & repb)) {  // the chain is gone
         captured = true;
         break;
       }
-      const int dlibs = b.hl[lrep];
+      const unsigned E = g.row & ~(A | D);
+      const unsigned dC = dil(g, C);
+      const unsigned libpts = E & dC;
+      const int dlibs = count(libpts);
       const bool term_esc = ko >= 0 || dlibs >= 2;
-      auto def_mask = [&](int q) { return b.lab[q] == lrep && b.st[q] == def; };
-      auto empty = [&](int q) { return b.st[q] == EMPTY; };
-      auto libpt = [&](int p) { return empty(p) && adj_to(p, size, def_mask); };
-      int ext = wfirst(nn, libpt);
+      int ext = first(g, libpts);
       const bool any_lib = ext < nn;
       if (!any_lib) ext = 0;
       int best_est = -1;
-      if (any_lib) {
-        const int e = ext;
-        best_est = wcount(nn, [&](int p) {
-          return empty(p) && p != e &&
-                 adj_to(p, size, [&](int q) { return def_mask(q) || q == e; });
-        });
-      }
+      if (any_lib)
+        best_est = count(E & ~bit(g, ext) & (dC | dil_pt(g, ext)));
       int best_move = ext;
-      int removed[K_ADJ];
-      int nrem = 0;
+      unsigned rem = A & dC;
       for (int t = 0; t < K_ADJ; ++t) {
-        const int nr = nrem;
-        int p = wfirst(nn, [&](int q) {
-          if (b.st[q] != att) return false;
-          int l = b.lab[q];
-          for (int r = 0; r < nr; ++r)
-            if (l == removed[r]) return false;
-          return adj_to(q, size, def_mask);
-        });
+        const int p = first(g, rem);
         if (p >= nn) break;  // nothing left: later candidates are empty too
-        const int lp = b.lab[p];
-        removed[nrem++] = lp;
-        auto chain_t = [&](int q) { return b.lab[q] == lp && b.st[q] == att; };
-        const bool atari = b.hl[lp] == 1;
-        if (!atari) continue;
-        int ci = wfirst(nn, [&](int q) {
-          return empty(q) && adj_to(q, size, chain_t);
-        });
-        if (ci >= nn || ci == ko) continue;
-        const bool joins = adj_to(ci, size, def_mask);
-        const int cc = ci;
-        int est_t = wcount(nn, [&](int q) {
-          return (empty(q) || chain_t(q)) && q != cc &&
-                 adj_to(q, size, [&](int r) {
-                   return def_mask(r) || (joins && r == cc);
-                 });
-        });
+        const unsigned ch = flood(g, A, bit(g, p));
+        rem &= ~ch;
+        const unsigned lone = E & dil(g, ch);
+        if (count(lone) != 1) continue;  // not in atari
+        const int ci = first(g, lone);
+        if (ci == ko) continue;
+        const bool joins = any(dC & bit(g, ci));
+        const int est_t = count((E | ch) & ~bit(g, ci) &
+                                (dC | (joins ? dil_pt(g, ci) : 0u)));
         if (est_t >= best_est) {
           best_est = est_t;
           best_move = ci;
         }
       }
       if (best_est < 0) {  // no defender move at all
-        done = true;
         captured = true;
         break;
       }
-      Move mv = analyze(b, best_move, def);
-      const bool new_cap = !mv.legal;
-      const bool new_esc = term_esc || (!new_cap && mv.overflow);
-      if (new_cap || new_esc) {
-        done = true;
-        captured = new_cap;
+      const Move mv = analyze(g, D, A, E, best_move, C, 0u);
+      if (!mv.legal) {  // suicide counts as captured, even after an escape
+        captured = true;
         break;
       }
-      commit(b, mv);
+      if (term_esc || mv.overflow) break;
+      D |= mv.mine;
+      A &= ~mv.cap;
+      if (mv.joins_kp) C = mv.mine;
       ko = mv.ko_loc;
     }
     ++ply;
     if (ply >= max_steps) break;
     // =============== attacker ply ===============
     {
-      const int lrep = b.lab[rep];
-      const bool gone = b.st[rep] != def;
-      const int dlibs = gone ? 0 : b.hl[lrep];
-      if (gone || dlibs <= 1) {
-        done = true;
+      if (!any(D & repb)) {
         captured = true;
         break;
       }
-      if (dlibs >= 3) {
-        done = true;
-        captured = false;
+      const unsigned E = g.row & ~(A | D);
+      const unsigned dC = dil(g, C);
+      const unsigned libpts = E & dC;
+      const int dlibs = count(libpts);
+      if (dlibs <= 1) {
+        captured = true;
         break;
       }
-      auto def_mask = [&](int q) { return b.lab[q] == lrep && b.st[q] == def; };
-      auto empty = [&](int q) { return b.st[q] == EMPTY; };
-      auto libpt = [&](int p) { return empty(p) && adj_to(p, size, def_mask); };
-      const int l0 = wfirst(nn, libpt);
-      const int l1 = wfirst(nn, [&](int p) { return p > l0 && libpt(p); });
-      int l2[2] = {l0, l0 < nn ? l1 : nn};
+      if (dlibs >= 3) break;  // escaped
+      const int l0 = first(g, libpts);
+      const int l1 = first(g, libpts & ~bit(g, l0));
+      const int l2[2] = {l0, l0 < nn ? l1 : nn};
 
       bool refuted[2];
       int est[2];
       for (int t = 0; t < 2; ++t) {
-        const int li_raw = l2[t];
-        const int lo_raw = l2[1 - t];
-        const int li = li_raw > nn - 1 ? nn - 1 : li_raw;
-        const int lo = lo_raw > nn - 1 ? nn - 1 : lo_raw;
-        const bool valid = li_raw < nn && li_raw != ko;
-        int all_[4];
-        bool als_att[4];
-        for (int d = 0; d < 4; ++d) {
-          int q = nbr(li, d, size);
-          int s = q < 0 ? WALL : b.st[q];
-          all_[d] = q < 0 ? nn : b.lab[q];
-          als_att[d] = s == att;
-        }
-        auto amask = [&](int p) {
-          if (p == li) return true;
-          if (b.st[p] != att) return false;
-          int l = b.lab[p];
-          return (als_att[0] && l == all_[0]) || (als_att[1] && l == all_[1]) ||
-                 (als_att[2] && l == all_[2]) || (als_att[3] && l == all_[3]);
-        };
-        auto lone_a = [&](int p) {
-          return empty(p) && p != li && adj_to(p, size, amask);
-        };
-        const int a_libs = wcount(nn, lone_a);
-        const int est_ext2 = wcount(nn, [&](int p) {
-          return empty(p) && p != li && p != lo &&
-                 adj_to(p, size, [&](int q) { return def_mask(q) || q == lo; });
-        });
+        const int li = min(l2[t], nn - 1);
+        const int lo = min(l2[1 - t], nn - 1);
+        const bool valid = l2[t] < nn && l2[t] != ko;
+        const unsigned lib = bit(g, li);
+        const unsigned amask = lib | flood(g, A, dil_pt(g, li));
+        const unsigned lone_a = E & ~lib & dil(g, amask);
+        const int a_libs = count(lone_a);
+        const int est_ext2 =
+            count(E & ~lib & ~bit(g, lo) & (dC | dil_pt(g, lo)));
         int est_cap2 = 0;
         if (a_libs == 1) {
-          int ca = wfirst(nn, lone_a);
-          if (ca >= nn) ca = 0;
-          const bool joins_a = adj_to(ca, size, def_mask);
-          const int cc = ca;
-          est_cap2 = wcount(nn, [&](int p) {
-            return (empty(p) || amask(p)) && p != li && p != cc &&
-                   adj_to(p, size, [&](int q) {
-                     return def_mask(q) || (joins_a && q == cc);
-                   });
-          });
+          const int ca = first(g, lone_a);
+          const bool joins_a = any(dC & bit(g, ca));
+          est_cap2 = count((E | amask) & ~lib & ~bit(g, ca) &
+                           (dC | (joins_a ? dil_pt(g, ca) : 0u)));
         }
-        const int est_def = max(est_ext2, a_libs == 1 ? est_cap2 : 0);
+        const int est_def = max(est_ext2, est_cap2);
         refuted[t] = !valid || a_libs < 1 || est_def >= 3;
         est[t] = est_def;
       }
       const bool both_ref = refuted[0] && refuted[1];
       const bool pick1 = !refuted[1] && (refuted[0] || est[1] < est[0]);
-      int att_move = pick1 ? l2[1] : l2[0];
-      if (att_move > nn - 1) att_move = nn - 1;
+      const int att_move = min(pick1 ? l2[1] : l2[0], nn - 1);
 
       bool double_ko = false;
-      if (l2[0] < nn && l2[1] < nn && imm_libs(b, l2[0]) == 0 &&
-          imm_libs(b, l2[1]) == 0) {
-        double_ko = would_be_ko_capture(b, l2[0], def) &&
-                    would_be_ko_capture(b, l2[1], def);
+      if (l2[0] < nn && l2[1] < nn && count(dil_pt(g, l2[0]) & E) == 0 &&
+          count(dil_pt(g, l2[1]) & E) == 0) {
+        double_ko = would_be_ko_capture(g, D, E, C, l2[0]) &&
+                    would_be_ko_capture(g, D, E, C, l2[1]);
       }
-      Move mv = analyze(b, att_move, att);
-      const bool new_esc = both_ref || mv.overflow;
-      const bool new_cap = !new_esc && double_ko;
-      if (new_cap || new_esc) {
-        done = true;
-        captured = new_cap;
+      const Move mv = analyze(g, A, D, E, att_move, 0u, C);
+      if (both_ref || mv.overflow) break;  // escaped
+      if (double_ko) {
+        captured = true;
         break;
       }
-      commit(b, mv);
+      // played even when analyze calls it illegal
+      A |= mv.mine;
+      D &= ~mv.cap;
+      C &= ~mv.cap;
       ko = mv.ko_loc;
     }
     ++ply;
   }
-  if (lane == 0) out[L] = (done && captured) ? 1 : 0;
+  if (lane == 0) out[L] = captured ? 1 : 0;
 }
 
 }  // namespace
 
-extern "C" int chase_lanes_launch(const void* stones, const void* labels,
-                                  const void* hlibs, const void* rep,
+extern "C" int chase_lanes_launch(const void* stones, const void* rep,
                                   const void* defender, const void* premove,
                                   const void* active, void* out, int lanes,
                                   int size, int max_steps, void* stream) {
-  const int nn = size * size;
-  const int nn_al = (nn + 7) & ~7;
-  const int stride = (5 * nn_al + 15) & ~15;
   const int blocks = (lanes + WARPS - 1) / WARPS;
-  const size_t shmem = (size_t)WARPS * stride;
-  chase_kernel<<<blocks, WARPS * 32, shmem, (cudaStream_t)stream>>>(
-      (const int*)stones, (const int*)labels, (const int*)hlibs,
-      (const int*)rep, (const int*)defender, (const int*)premove,
-      (const int8_t*)active, (int8_t*)out, lanes, size, max_steps, stride);
+  chase_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const int*)stones, (const int*)rep, (const int*)defender,
+      (const int*)premove, (const uint8_t*)active, (uint8_t*)out, lanes, size,
+      max_steps);
   return (int)cudaGetLastError();
 }

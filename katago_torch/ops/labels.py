@@ -4,15 +4,19 @@ katago_tpu/ops/labels_pallas.py::connected_labels_batch.
 `connected_labels(values, size)` labels int32[G, NN] boards: each point
 gets the smallest flat index reachable through 4-connected points of
 equal value. On a CUDA tensor it launches the hand-written kernel
-ops/csrc/labels.cu (one block per board, shared-memory min-propagation
-plus pointer jumping until nothing changes); on a CPU tensor it runs
-`connected_labels_plain`, the same fixpoint in plain torch.
+ops/csrc/labels.cu (one block per board, union-find in shared memory:
+each horizontal run of equal values starts as one tree, runs join their
+equal lower neighbours with the smaller root winning, finds halve their
+paths, then every point writes its root; three block barriers whatever
+the board's shape); on a CPU tensor it runs `connected_labels_plain`,
+neighbour-min propagation to a fixpoint in plain torch.
 
-Bound on an H100: launch latency. One [128, 361] call moves 0.37 MB
-(0.1 us at 3.35 TB/s) and does a few thousand integer operations per
-board; the kernel keeps each board in shared memory for its whole solve
-and loops on-chip until convergence, so a call is one launch with no
-host round trip.
+Bound on an H100: latency. One [128, 361] call moves 0.37 MB (0.1 us at
+3.35 TB/s) and does a few thousand integer operations per board; the
+kernel keeps each board in shared memory for its whole solve, so a call
+is one launch with no host round trip. The wrapper runs 17-30 times per
+playout step, so its host path is kept short: the C entry point is
+resolved once, and no device switch or lock is taken on the hot path.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ launches = 0          # kernel launches since the last reset (chip_smoke)
 _SIGNATURES = {"connected_labels_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]}
+
+_launch = None        # the C entry point, resolved at first use
 
 _INT_MAX = 2 ** 31 - 1
 
@@ -83,12 +89,10 @@ def connected_labels(values: torch.Tensor, size: int) -> torch.Tensor:
     out = torch.empty_like(values)
     if values.shape[0] == 0:
         return out
-    lib = _build.load("labels", _SIGNATURES)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.connected_labels_launch(values.data_ptr(), out.data_ptr(),
-                                         values.shape[0], size, stream)
-    _build.check(rc, "connected_labels")
-    global launches
+    global _launch, launches
+    if _launch is None:
+        _launch = _build.load("labels", _SIGNATURES).connected_labels_launch
+    _build.launch(_launch, values.device, "connected_labels",
+                  values.data_ptr(), out.data_ptr(), values.shape[0], size)
     launches += 1
     return out

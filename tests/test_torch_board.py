@@ -17,6 +17,7 @@ from katago_torch.game import board as TB
 from katago_torch.game import graphhash as TGH
 from katago_torch.game import history as TH
 from katago_torch.game import zobrist as TZ
+from katago_torch.ops import cases as CASES
 from katago_torch.ops import labels as K2
 
 from tests import test_torch_common as C
@@ -24,18 +25,39 @@ from tests import test_torch_common as C
 
 @pytest.mark.parametrize("size,g", [(5, 3), (9, 8), (19, 4)])
 def test_connected_labels_match_jax_and_pallas_contract(size, g):
+    """Random values plus the adversarial K2 cases of ops/cases.py (a
+    spiral, a serpentine, a checkerboard, a full and an empty board)."""
     rng = np.random.default_rng(size * 100 + g)
     nn = size * size
-    vals = rng.integers(0, 3, (g, nn)).astype(np.int32)
-    vals[0] = 1                       # snake worst case: one component
-    if g > 1:
-        vals[1] = 0                   # empty board
+    shapes = [v.numpy() for k, v in CASES.label_cases(size, 0, 0).items()
+              if k != "random"]
+    vals = np.concatenate(shapes + [rng.integers(0, 3, (g, nn))]
+                          ).astype(np.int32)
     ref = np.asarray(jax.jit(jax.vmap(
         lambda v: JB.connected_labels(v, size)))(jnp.asarray(vals)))
     pallas = np.asarray(connected_labels_batch(jnp.asarray(vals), size))
     ours = C.to_np(K2.connected_labels(torch.from_numpy(vals), size))
     np.testing.assert_array_equal(ours, ref)
-    np.testing.assert_array_equal(ours, pallas)
+    # The Pallas kernel runs a fixed 2 * ceil(log2 NN) + 4 rounds, too few
+    # for the 19x19 spiral (ROADMAP Queue 3): there it is the JAX side that
+    # is wrong, so its contract is held on the other boards.
+    keep = np.ones(len(vals), bool)
+    keep[0] = size < 19
+    np.testing.assert_array_equal(ours[keep], pallas[keep])
+
+
+@pytest.mark.parametrize("size", [5, 9, 19])
+def test_label_cases_have_the_components_they_claim(size):
+    cases = CASES.label_cases(size, 2, 1)
+    ncomp = {k: len(np.unique(C.to_np(K2.connected_labels(v, size))))
+             for k, v in cases.items() if k != "random"}
+    assert ncomp == {"spiral": 2, "serpentine": 1 + size // 2,
+                     "checkerboard": size * size, "full": 1, "empty": 1}
+    spiral = C.to_np(cases["spiral"][0])
+    # one stone chain holding about half of the board
+    assert spiral.sum() > size * size // 2 - size
+    rnd = C.to_np(cases["random"])
+    assert rnd.shape == (2, size * size) and (rnd > 0).any()
 
 
 def test_serpentine_chain_labels():
