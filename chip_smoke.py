@@ -17,11 +17,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   5. SearchDriver.search at 19x19, b18c384nbt, bf16, 128 games,
      SearchParams.for_selfplay(), ladder planes on, chunks of 200, 600
      visits: every game reaches visits+1 and both kernels' launch counters
-     rise during the search; then each game plays its chosen move and a
-     second search runs from the new position;
-  6. report: the card's name and power limit, each kernel's time beside
-     its plain version's and its bound, launches per search, playouts/s,
-     a `kernels` JSON line, and the result line last.
+     rise during the search;
+  6. the exact ladder solver on the card vs the JAX package's results
+     saved in tests/data/torch_ref/ladder_exact.npz — exact; then
+     selfplay (`run_selfplay_phase`): play_games on the same net, with
+     tree reuse, the chase ladders in the search and the exact solver in
+     the recorded rows; the rows go through the port's npz writer and
+     the sgf writer into a temporary directory and are read back and
+     checked against the npz schema of tests/data/torch_ref/; both
+     kernels' launch counters rise during the games;
+  7. report: the card's name and power limit, each kernel's time beside
+     its plain version's and its bound, launches per search and per
+     selfplay move, playouts/s, a `kernels` JSON line, and the result
+     line last.
 
 A kernel's time ("device-only") is that of N launches captured in one
 CUDA graph and replayed, timed with CUDA events, over N: the device's
@@ -61,6 +69,9 @@ VISITS = 600
 CHUNK = 200
 MODEL = "b18c384nbt"
 SEED = 0
+SP_VISITS = 32
+SP_MOVES = 16
+REF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_ref"
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
 
@@ -184,6 +195,145 @@ def old_chase(lib, args, steps):
         if rc:
             raise RuntimeError(f"old chase_lanes failed: {rc}")
     return launch, out
+
+
+def check_exact_ladders(dev) -> None:
+    """The exact ladder solver on the card against the JAX package's
+    ladder_map on the boards of tests/data/torch_ref/ladder_exact.npz
+    (every set, the reduced-cap sets included): bit for bit."""
+    import numpy as np
+
+    from katago_torch.game import ladder as LAD
+
+    with np.load(REF_DIR / "ladder_exact.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    meta = json.loads(str(ref["meta"]))
+    boards = 0
+    for name, m in sorted(meta["sets"].items()):
+        got = LAD.ladder_map_batch(
+            torch.from_numpy(ref[f"{name}/stones"]).to(dev), m["size"],
+            ko_loc=torch.from_numpy(ref[f"{name}/ko"]).long().to(dev),
+            **m["ladder_map_kwargs"])
+        for f in ("laddered", "working_vs_black", "working_vs_white"):
+            if not np.array_equal(getattr(got, f).cpu().numpy(),
+                                  ref[f"{name}/{f}"]):
+                raise AssertionError(f"exact ladders on the card differ "
+                                     f"from the JAX fixture: {name} {f}")
+        boards += m["boards"]
+    log(f"phase exact ladders: equal to the JAX fixture on {boards} boards "
+        f"({len(meta['sets'])} sets)")
+
+
+def run_selfplay_phase(model, gen, dev) -> dict:
+    """Selfplay at the production shape: play_games at 19x19 with the
+    b18c384nbt net in bf16, 128 games, SearchParams.for_selfplay(),
+    PlaySettings.for_selfplay() (policy-init openings, cheap/full
+    mixing, komi randomization), tree reuse on, ladder planes on (the
+    chase in the search, the exact solver for the recorded rows). Two
+    cuts, both for the time limit: SP_VISITS = 32 visits per move
+    (selfplay uses 600) and SP_MOVES = 16 moves per game (games are not
+    played to the end). The shard and the sgfs go through the port's
+    writers into a temporary directory and are read back: keys, dtypes
+    and per-row shapes equal the schema pinned by the CPU fixture,
+    rows > 0, policy targets sum to 1, every float is finite, and both
+    kernels were launched during the games. Returns the phase's numbers."""
+    import tempfile
+
+    import numpy as np
+
+    from katago_torch.cli.selfplay_cmd import game_records
+    from katago_torch.ops import chase as K1
+    from katago_torch.ops import labels as K2
+    from katago_torch.search.params import SearchParams
+    from katago_torch.selfplay.loop import play_games
+    from katago_torch.selfplay.playsettings import PlaySettings
+
+    schema = json.loads((REF_DIR / "npz_schema.json").read_text())[
+        "per_row"][str(SIZE)]
+    timings = {}
+    K1.reset_launches()
+    K2.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    data, stats = play_games(
+        model, size=SIZE, num_games=GAMES, visits=SP_VISITS,
+        search_params=SearchParams.for_selfplay(), max_moves=SP_MOVES,
+        gen=gen, device=dev, tree_reuse=True,
+        play_settings=PlaySettings.for_selfplay(), ladder_mode="chase",
+        timings=timings)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = {"chase_lanes": K1.launches, "connected_labels": K2.launches}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched by selfplay")
+    rows = data.spatial.shape[0]
+    if rows == 0:
+        raise AssertionError("selfplay recorded no rows")
+    pol_sum = data.policy_target.sum(1)
+    if not np.allclose(pol_sum, 1.0, atol=1e-5):
+        raise AssertionError(f"policy targets sum to {pol_sum.min()}.."
+                             f"{pol_sum.max()}, not 1")
+    arrays = data.to_npz_arrays(SIZE, stats["white_minus_black"],
+                                komi_white=stats["komi_white"])
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = Path(tmp) / f"batch000000_{SEED}_s{SIZE}.npz"
+        np.savez_compressed(shard, **arrays)
+        sgfs = Path(tmp) / f"batch000000_{SEED}.sgfs"
+        sgfs.write_text("\n".join(game_records(data, stats, SIZE, GAMES,
+                                                None)) + "\n")
+        npz_bytes, sgf_bytes = shard.stat().st_size, sgfs.stat().st_size
+        with np.load(shard) as z:
+            back = {k: z[k] for k in z.files}
+    if sorted(back) != sorted(schema):
+        raise AssertionError(f"npz keys {sorted(back)} != {sorted(schema)}")
+    for k, (dtype, shape) in schema.items():
+        if str(back[k].dtype) != dtype or list(back[k].shape) != \
+                [rows] + shape:
+            raise AssertionError(f"npz {k}: {back[k].dtype} "
+                                 f"{back[k].shape}, want {dtype} {shape}")
+        if back[k].dtype.kind == "f" and not np.isfinite(back[k]).all():
+            raise AssertionError(f"npz {k} is not finite")
+    for f in ("spatial", "global_in", "policy_target", "value_target",
+              "mcts_winloss_white", "q_winloss_white", "policy_prior"):
+        if not np.isfinite(getattr(data, f)).all():
+            raise AssertionError(f"row field {f} is not finite")
+    moves = timings["moves"]
+    rec = timings.get("recorded_moves", 0)
+    lad = timings["ladder"]
+    out = {"seconds": dt, "moves": moves, "recorded_moves": rec,
+           "rows": rows, "npz_bytes": npz_bytes, "sgf_bytes": sgf_bytes,
+           "playouts": stats["total_playouts"],
+           "playouts_per_s": stats["total_playouts"] / dt,
+           "launches": launches,
+           "s_per_move": {k: timings.get(k + "_s", 0.0) / moves
+                          for k in ("search", "choose", "step")},
+           "features_s_per_recorded_move":
+               timings.get("features_s", 0.0) / max(rec, 1),
+           "ladder": lad,
+           "ladder_ms_per_call": lad["seconds"] / lad["calls"] * 1e3}
+    log(f"phase selfplay: {GAMES} games x {moves} moves ({rec} recorded) "
+        f"at {SP_VISITS} visits in {dt:.2f} s; {stats['total_playouts']} "
+        f"playouts ({out['playouts_per_s']:.1f} playouts/s); {rows} rows, "
+        f"npz {npz_bytes} B, sgfs {sgf_bytes} B; launches {launches} "
+        f"({launches['chase_lanes'] / moves:.1f} K1 and "
+        f"{launches['connected_labels'] / moves:.1f} K2 per move)")
+    log(f"selfplay s/move: search {out['s_per_move']['search']:.3f}, move "
+        f"choice {out['s_per_move']['choose']:.3f}, board step "
+        f"{out['s_per_move']['step']:.3f}; row featurization "
+        f"{out['features_s_per_recorded_move']:.3f} s per recorded move")
+    log(f"selfplay exact ladders: {lad['calls']} ladder_map_batch calls, "
+        f"{out['ladder_ms_per_call']:.1f} host ms per call, {lad['lanes']} "
+        f"lanes, longest lane {lad['max_lane_iters']} iterations, "
+        f"{lad['lockstep_iters']} lockstep iterations, unfinished "
+        f"{lad['unfinished_lanes']}, depth hits {lad['depth_hits']}")
+    log("selfplay json " + json.dumps(
+        dict(out, ladder={k: v for k, v in lad.items()
+                          if k != "longest_lane"})))
+    if "longest_lane" in lad:
+        log("selfplay longest exact lane " + json.dumps(
+            lad["longest_lane"]))
+    return out
 
 
 def main() -> int:
@@ -388,41 +538,33 @@ def main() -> int:
             raise AssertionError(f"{k} is not finite")
     log(f"phase search 1: {GAMES} games x {VISITS} visits in {dt1:.2f} s "
         f"({GAMES * VISITS / dt1:.1f} playouts/s), launches {launches}")
-
     moves = mcts.choose_moves(res, sp, roots.pos.move_num, gen)
-    legal = H.legal_moves(roots, SIZE)
-    if not bool(legal.gather(1, moves[:, None]).all()):
+    if not bool(H.legal_moves(roots, SIZE).gather(1, moves[:, None]).all()):
         raise AssertionError("a chosen move is illegal")
-    roots2, _ = H.step(roots, moves, SIZE)
-    K1.reset_launches()
-    K2.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    res2 = driver.search(roots2, gen, max_visits=VISITS + 1)
-    torch.cuda.synchronize()
-    dt2 = time.time() - t0
-    if not bool((res2.root_visits == VISITS + 1).all()):
-        raise AssertionError("second search did not reach visits+1")
-    if K1.launches <= 0 or K2.launches <= 0:
-        raise AssertionError("second search did not launch both kernels")
-    log(f"phase search 2 (after one move): {dt2:.2f} s "
-        f"({GAMES * VISITS / dt2:.1f} playouts/s), launches "
-        f"chase_lanes={K1.launches} connected_labels={K2.launches}")
 
-    # ---- 6. report ----
-    log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} "
-        f"(search 1), {GAMES * VISITS / dt2:.1f} (search 2)")
+    # ---- 6. selfplay ----
+    check_exact_ladders(dev)
+    sp_out = run_selfplay_phase(model, gen, dev)
+
+    # ---- 7. report ----
+    log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} (search 1), "
+        f"{sp_out['playouts_per_s']:.1f} (selfplay, {SP_VISITS} visits, "
+        f"tree reuse)")
     kernels = [
         {"name": "chase_lanes", "route": "cuda",
          "source": "katago_torch/ops/csrc/chase.cu",
          "replaces": "katago_tpu/ops/chase_pallas.py:456",
-         "launches": launches["chase_lanes"], "max_abs_err": k1_err,
+         "launches": launches["chase_lanes"],
+         "launches_selfplay": sp_out["launches"]["chase_lanes"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None},
         {"name": "connected_labels", "route": "cuda",
          "source": "katago_torch/ops/csrc/labels.cu",
          "replaces": "katago_tpu/ops/labels_pallas.py:138",
-         "launches": launches["connected_labels"], "max_abs_err": k2_err,
+         "launches": launches["connected_labels"],
+         "launches_selfplay": sp_out["launches"]["connected_labels"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >=
          k2_ops / INT_OPS_PER_S else "operations", "library_ms": None},

@@ -621,3 +621,62 @@ def final_score_pos(pos: PosState, rules: RulesArr, size: int):
 
 def final_score(gs: GameState, size: int):
     return final_score_pos(gs.pos, gs.rules, size)
+
+
+def replace_pos(gs: GameState, **kw) -> GameState:
+    """Replace PosState fields through the GameState wrapper (setup)."""
+    return dataclasses.replace(gs, pos=dataclasses.replace(gs.pos, **kw))
+
+
+def _restart_from_board(gs: GameState, stones, pos_hash) -> GameState:
+    """Install a starting board: the prev-board snapshots clamp to it
+    (getRecentBoard) and history slot 0 records its ko hash."""
+    board = dataclasses.replace(gs.pos.board, stones=stones,
+                                pos_hash=pos_hash)
+    gs = replace_pos(gs, board=board, prev_stones=stones.to(torch.int8),
+                     prev_prev_stones=stones.to(torch.int8))
+    hist = gs.ko_hash_hist.clone()
+    hist[:, 0] = _pos_ko_hash(gs.pos, gs.rules)
+    return dataclasses.replace(gs, ko_hash_hist=hist)
+
+
+def setup_board(gs: GameState, stones, size: int) -> GameState:
+    """Replace every game's whole starting board (stones int[G, NN]):
+    recomputes the zobrist pos_hash, seeds the prev-board snapshots and
+    refreshes the recorded starting ko-hash. Only valid before any moves
+    are played."""
+    nn = size * size
+    stones = stones.to(device=gs.hist_len.device, dtype=torch.int32)
+    st = zobrist.stone_table(size, stones.device)[:, :nn]   # [2, NN, 2]
+    zero = torch.zeros((), dtype=torch.int64, device=stones.device)
+    keys = torch.where((stones == B.BLACK).unsqueeze(-1), st[0], zero) ^ \
+        torch.where((stones == B.WHITE).unsqueeze(-1), st[1], zero)
+    return _restart_from_board(gs, stones, zobrist.xor_reduce(keys, dim=-2))
+
+
+def setup_stone(gs: GameState, loc, color, size: int) -> GameState:
+    """Place (or clear, color=EMPTY) one pre-game setup stone per game
+    (loc, color [G]): updates the zobrist pos_hash, seeds the prev-board
+    snapshots and refreshes the recorded starting ko-hash
+    (Board::setStone + BoardHistory::clear). Only valid before any
+    moves are played."""
+    dev = gs.hist_len.device
+    st = zobrist.stone_table(size, dev)                      # [2, NN+1, 2]
+    loc = torch.as_tensor(loc, dtype=torch.int64, device=dev).expand(
+        gs.hist_len.shape)
+    color = torch.as_tensor(color, dtype=torch.int64, device=dev).expand(
+        gs.hist_len.shape)
+    gi = torch.arange(loc.shape[0], device=dev)
+    old = gs.pos.board.stones[gi, loc].long()
+    h = gs.pos.board.pos_hash
+    h = torch.where((old > 0).unsqueeze(-1),
+                    h ^ st[old.clamp(1, 2) - 1, loc], h)
+    h = torch.where((color > 0).unsqueeze(-1),
+                    h ^ st[color.clamp(1, 2) - 1, loc], h)
+    stones = gs.pos.board.stones.clone()
+    stones[gi, loc] = color.to(stones.dtype)
+    return _restart_from_board(gs, stones, h)
+
+
+# the JAX package's name for final_score in the selfplay writer
+final_score_area = final_score

@@ -4,14 +4,17 @@ batched over games. Reference: KataGo NNInputs::fillRowV7
 from the perspective of the player to move. See the JAX module docstring
 for the plane and global maps.
 
-Ladder planes 14-17 use the in-search chase solver (ladder_mode
-"chase"); the backtracking "exact" mode and the V3-V6 feature versions
-are not ported yet and raise NotImplementedError.
+Ladder planes 14-17 come from the exact backtracking solver
+(ladder_mode "exact", the JAX default: per-move and data-writing
+featurization) or the greedy chase (ladder_mode "chase": the search
+evaluator's). The V3-V6 feature versions are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -56,16 +59,20 @@ def self_komi(gs: H.GameState, params: FeatureParams) -> torch.Tensor:
 def fill_features_v7(gs: H.GameState, size: int, params: FeatureParams,
                      legal_full: torch.Tensor | None = None,
                      with_ladders: bool = True,
-                     ladder_mode: str = "chase",
+                     ladder_mode: str = "exact",
                      prev_laddered=None, prev_prev_laddered=None,
-                     cur_ladder: ladder.LadderResult | None = None):
+                     cur_ladder: ladder.LadderResult | None = None,
+                     ladder_stats: dict | None = None):
     """(spatial float32[G, NN, 22], global float32[G, 19]) for each game's
     player to move. prev_laddered / prev_prev_laddered: cached ladder
     masks of the boards one and two moves ago (the search's per-node
-    cache); cur_ladder: a precomputed LadderResult of the current boards."""
-    if with_ladders and ladder_mode != "chase":
-        raise NotImplementedError(
-            f"ladder_mode {ladder_mode!r}: only the chase solver is ported")
+    cache); cur_ladder: a precomputed LadderResult of the current boards.
+    Without cached masks the current, previous and pre-previous boards
+    of every game are solved in one batched call. ladder_stats: passed to
+    the exact solver (ladder.ladder_map_batch's stats)."""
+    solve = ladder.batch_solver(ladder_mode)
+    if ladder_mode == "exact":
+        solve = functools.partial(solve, stats=ladder_stats)
     nn = size * size
     dev = gs.board.stones.device
     g = gs.board.stones.shape[0]
@@ -145,8 +152,7 @@ def fill_features_v7(gs: H.GameState, size: int, params: FeatureParams,
     if with_ladders:
         if prev_laddered is not None:
             lad = cur_ladder if cur_ladder is not None else \
-                ladder.ladder_map_chase_batch(stones, size,
-                                              ko_loc=gs.pos.simple_ko_loc)
+                solve(stones, size, ko_loc=gs.pos.simple_ko_loc)
             lad15 = torch.where((amount >= 1).unsqueeze(-1), prev_laddered,
                                 lad.laddered)
             lad16 = torch.where((amount >= 2).unsqueeze(-1),
@@ -162,7 +168,7 @@ def fill_features_v7(gs: H.GameState, size: int, params: FeatureParams,
                              prev)
             pp_ko = torch.where(amount >= 2, gs.pos.prev_prev_ko_loc, prev_ko)
             # one batched solve over {current, prev, prev-prev}
-            lad3 = ladder.ladder_map_chase_batch(
+            lad3 = solve(
                 torch.cat([stones, prev, pp]), size,
                 ko_loc=torch.cat([gs.pos.simple_ko_loc, prev_ko, pp_ko]))
             lad = ladder.LadderResult(*(getattr(lad3, f.name)[:g] for f in
@@ -238,9 +244,9 @@ def fill_features_v7(gs: H.GameState, size: int, params: FeatureParams,
 
 def fill_features(gs: H.GameState, size: int, params: FeatureParams,
                   legal: torch.Tensor, *, version: int = 7,
-                  with_ladders: bool = True, ladder_mode: str = "chase",
+                  with_ladders: bool = True, ladder_mode: str = "exact",
                   prev_laddered=None, prev_prev_laddered=None,
-                  cur_ladder=None):
+                  cur_ladder=None, ladder_stats: dict | None = None):
     """Versioned featurizer; only V7 is ported."""
     if version != 7:
         raise NotImplementedError(
@@ -250,4 +256,5 @@ def fill_features(gs: H.GameState, size: int, params: FeatureParams,
                             ladder_mode=ladder_mode,
                             prev_laddered=prev_laddered,
                             prev_prev_laddered=prev_prev_laddered,
-                            cur_ladder=cur_ladder)
+                            cur_ladder=cur_ladder,
+                            ladder_stats=ladder_stats)

@@ -1,11 +1,12 @@
 """Chunked search driver — port of the visit-budget path of
 katago_tpu/search/driver.py::SearchDriver.
 
-The host runs playouts in chunks of `chunk_size`: a fresh-root search of
-`max_visits` first runs the chunks that budget needs without polling,
-then checks the root visits (one sync per chunk) and tops up playouts
-voided by superko rejections. Time management, callbacks, pondering,
-tree reuse and AsyncSearch are not ported yet.
+The host runs playouts in chunks of `chunk_size`: a search of
+`max_visits` first runs the chunks that budget needs without polling
+(a fresh root has 1 visit; a reused tree costs one sync to learn its
+least root visits), then checks the root visits (one sync per chunk) and
+tops up playouts voided by superko rejections. Time management,
+callbacks, pondering and AsyncSearch are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,8 +28,6 @@ class SearchDriver:
                  with_ladders: bool = True, ladder_mode: str = "chase",
                  root_num_symmetries: int = 1, feature_version: int = 7,
                  device=None):
-        if ladder_mode != "chase":
-            raise NotImplementedError("only the chase ladder mode is ported")
         self.device = resolve_device(device)
         self.model = model
         self.sp = sp
@@ -47,9 +46,13 @@ class SearchDriver:
                              f"{self.device}")
 
     def search(self, roots: H.GameState, gen: torch.Generator, *,
-               max_visits: int, active_mask=None) -> mcts.SearchResult:
+               max_visits: int, active_mask=None,
+               prev_tree: mcts.Tree | None = None,
+               prev_actions=None) -> mcts.SearchResult:
         """Search every game until its root has max_visits visits (the
-        root's own eval counts one, as the reference's maxVisits does)."""
+        root's own eval counts one, as the reference's maxVisits does).
+        prev_tree / prev_actions: reuse the previous search's trees,
+        re-rooted at the actions then played (mcts.init_search)."""
         self._check_device(roots.hist_len)
         g = roots.hist_len.shape[0]
         ss = mcts.init_search(
@@ -57,7 +60,8 @@ class SearchDriver:
             max_nodes=self.max_nodes, with_ladders=self.with_ladders,
             ladder_mode=self.ladder_mode,
             root_num_symmetries=self.root_num_symmetries,
-            feature_version=self.feature_version)
+            feature_version=self.feature_version, prev_tree=prev_tree,
+            prev_actions=prev_actions)
         amask = (torch.ones((g,), dtype=torch.bool, device=self.device)
                  if active_mask is None else active_mask)
 
@@ -69,9 +73,11 @@ class SearchDriver:
                 max_visits=max_visits, active_mask=amask,
                 feature_version=self.feature_version)
 
-        # a fresh root has exactly 1 visit: run the budget's chunks without
-        # polling, then top up playouts voided by superko rejections
-        n_full = max(0, max_visits - 1 + self.chunk_size - 1) // \
+        # run the budget's chunks without polling, then top up playouts
+        # voided by superko rejections
+        visits0 = 1 if prev_tree is None else \
+            int(ss.tree.visits[:, 0].min())
+        n_full = max(0, max_visits - visits0 + self.chunk_size - 1) // \
             self.chunk_size
         for _ in range(n_full):
             chunk()

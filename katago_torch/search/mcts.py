@@ -19,9 +19,12 @@ once per turn: the descent (every second level), the superko retry loop,
 the terminal-leaf check, the visit-cap check and the Benson fixpoints in
 the featurizer.
 
-Not ported in this slice: tree reuse (extract_subtree, prev_tree),
-anti-mirror and pattern bonus, root_num_symmetries > 1, sgf metadata,
-moves ownership, extract_pv and the analysis extras.
+Tree reuse (Search::makeMove): `extract_subtree` re-roots each game's
+pool at the child of its played move, and `init_search` /
+`run_search` take the previous trees and actions.
+
+Not ported yet: anti-mirror and pattern bonus, root_num_symmetries > 1,
+sgf metadata, moves ownership, extract_pv and the analysis extras.
 """
 
 from __future__ import annotations
@@ -760,13 +763,13 @@ def make_nn_evaluator(model, size: int, with_ladders: bool = True,
 
     With prev_lad (the cached ladder masks of the boards one and two moves
     back) only the current boards are solved, all games in one batched
-    chase call (K1 on CUDA)."""
+    call of the mode's solver (for "chase", one K1 call on CUDA)."""
 
     def batched_eval(leaf_gs, feat_params, sym=None, prev_lad=None):
         legal = H.legal_moves(leaf_gs, size)
         g = legal.shape[0]
         if prev_lad is not None and with_ladders:
-            cur_lad = LAD.ladder_map_chase_batch(
+            cur_lad = LAD.batch_solver(ladder_mode)(
                 leaf_gs.pos.board.stones, size,
                 ko_loc=leaf_gs.pos.simple_ko_loc)
             sp_feat, gl_feat = F.fill_features(
@@ -911,12 +914,151 @@ def _feature_params(sp) -> F.FeatureParams:
         conservative_pass=sp.conservative_pass)
 
 
+def _root_noise(pol, sp, gen: torch.Generator):
+    """Dirichlet noise mixed into root priors [G, A] (-1 = illegal) when
+    sp.root_noise_enabled (searchparams.h:44-47)."""
+    if not bool(sp.root_noise_enabled):
+        return pol
+    legal_mask = pol >= 0
+    n_legal = torch.clamp(legal_mask.sum(-1, keepdim=True), min=1)
+    alpha = sp.root_dirichlet_noise_total_concentration / n_legal
+    gamma = _sample_gamma(torch.where(legal_mask, alpha, 1e-6), gen)
+    noise = gamma / torch.clamp(torch.where(legal_mask, gamma, 0.0).sum(
+        -1, keepdim=True), min=1e-10)
+    mixed = (1.0 - sp.root_dirichlet_noise_weight) * pol + \
+        sp.root_dirichlet_noise_weight * noise
+    return torch.where(legal_mask, mixed, -1.0)
+
+
+def extract_subtree(tree: Tree, action) -> Tree:
+    """Re-root every game's pool at the old root's child for action[g]
+    (Search::makeMove tree reuse, search.h:253-257).
+
+    The result is compacted: node 0 is that child and the nodes are
+    exactly its subtree (stats, positions and links kept, everything
+    else cleared, as the JAX package clears it). A game whose child was
+    never expanded (or whose action is negative) gets num_nodes == 0
+    and the caller falls back to a fresh root. Membership comes from
+    pointer jumping over the parent links; children are allocated after
+    their parents, so the new root is the least index of its subtree and
+    the cumsum compaction maps it to slot 0."""
+    g, n = tree.visits.shape
+    dev = tree.visits.device
+    gi = torch.arange(g, device=dev)
+    idx = torch.arange(n, device=dev)
+    action = action.long()
+    new_root = tree.children[gi, 0, action.clamp(min=0)].long()
+    has = (new_root >= 0) & (action >= 0)
+    nr = new_root.clamp(min=0)
+
+    valid = idx < tree.num_nodes.unsqueeze(-1)
+    in_sub = (idx == nr.unsqueeze(-1)) & valid
+    p = torch.where(valid & (tree.parent >= 0), tree.parent, idx)
+    for _ in range(int(np.ceil(np.log2(max(n, 2)))) + 1):
+        in_sub = in_sub | in_sub.gather(1, p)
+        p = p.gather(1, p)
+    in_sub = in_sub & valid & has.unsqueeze(-1)
+
+    new_idx = torch.cumsum(in_sub.long(), dim=1) - 1
+    target = torch.where(in_sub, new_idx, n)      # n: the dump slot
+    rows = gi.unsqueeze(-1)
+
+    def scatter(arr, fill=0):
+        out = torch.full((g, n + 1) + arr.shape[2:], fill, dtype=arr.dtype,
+                         device=dev)
+        out[rows, target] = arr
+        return out[:, :n]
+
+    def remap(links):
+        """Old node indices [G, N, ...] (-1 = none) -> new ones; a link
+        out of the subtree becomes -1."""
+        flat = links.long().reshape(g, -1)
+        c = flat.clamp(0, n - 1)
+        ok = (flat >= 0) & in_sub.gather(1, c)
+        return torch.where(ok, new_idx.gather(1, c), -1).reshape(
+            links.shape).to(links.dtype)
+
+    stats = tree.stats.clone()
+    stats[..., C_LAST_BIAS_DELTA] = 0.0
+    stats[..., C_LAST_BIAS_WEIGHT] = 0.0
+    return Tree(
+        pos=T.tree_map(scatter, tree.pos),
+        ko_hash=scatter(tree.ko_hash),
+        graph_hash=scatter(tree.graph_hash),
+        parent=scatter(remap(tree.parent), -1),
+        parent_action=scatter(tree.parent_action, -1),
+        depth=scatter(tree.depth - tree.depth[gi, nr].unsqueeze(-1)),
+        children=scatter(remap(tree.children), -1),
+        policy=scatter(tree.policy),
+        visits=scatter(tree.visits),
+        stats=scatter(stats),
+        bias_key=scatter(tree.bias_key, -1),
+        laddered=scatter(tree.laddered),
+        term_own=scatter(tree.term_own),
+        best_action=scatter(tree.best_action),
+        num_nodes=in_sub.sum(-1))
+
+
+def _reused_tree(prev_tree: Tree, prev_actions, roots: H.GameState, sp,
+                 gen: torch.Generator, root_lad, root_town, size: int,
+                 max_nodes: int) -> Tree:
+    """The previous search's trees re-rooted at the played moves (or, with
+    prev_actions None, taken as already rooted at roots), padded to
+    max_nodes, with the root's prior re-tempered and re-noised and its
+    ladder mask, terminal ownership, pattern bonus and position set from
+    the live roots."""
+    prev_n = prev_tree.visits.shape[1]
+    if prev_n > max_nodes:
+        raise ValueError(
+            f"tree reuse requires prev max_nodes ({prev_n}) <= new "
+            f"max_nodes ({max_nodes}); shrinking pools would corrupt "
+            "subtree links")
+    if prev_actions is not None:
+        tree = extract_subtree(prev_tree, prev_actions)
+    else:
+        tree = T.tree_map(torch.clone, prev_tree)
+    g = tree.num_nodes.shape[0]
+    dev = tree.num_nodes.device
+    if prev_n < max_nodes:
+        empty = empty_tree(size, max_nodes, g, dev)
+        tree = T.tree_map(
+            lambda a, e: torch.cat([a, e[:, prev_n:]], 1) if a.dim() >= 2
+            else a, tree, empty)
+    # the stored prior is the child's leaf prior: apply the root policy
+    # temperature (as a power) and the root noise
+    pol = tree.policy[:, 0, :]
+    legal = pol >= 0
+    p = torch.where(legal, torch.clamp(pol, min=1e-10), 1.0).float()
+    p = torch.pow(p, 1.0 / torch.clamp(sp.root_policy_temperature,
+                                       min=1e-6))
+    p = p / torch.clamp(torch.where(legal, p, 0.0).sum(-1, keepdim=True),
+                        min=1e-10)
+    p = _root_noise(torch.where(legal, p, -1.0), sp, gen)
+    tree.policy[:, 0, :] = torch.where(legal, p, -1.0).to(POL_DT)
+    tree.laddered[:, 0] = root_lad
+    tree.term_own[:, 0] = root_town
+    tree.stats[:, 0, C_PATTERN_BONUS] = 0.0   # none on the root itself
+    zero = torch.zeros((g,), dtype=torch.int64, device=dev)
+    on = torch.ones((g,), dtype=torch.bool, device=dev)
+    T.tree_map(lambda store, v: _set_rows(store, zero, v, on), tree.pos,
+               roots.pos)
+    return tree
+
+
 def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
                 size: int, max_nodes: int, with_ladders: bool = True,
                 ladder_mode: str = "chase", root_num_symmetries: int = 1,
-                feature_version: int = 7) -> SearchState:
-    """Fresh-root SearchState for a batch of games (Search::beginSearch):
-    root NN eval, Dirichlet noise, dynamic score center, root pruning."""
+                feature_version: int = 7, prev_tree: Tree | None = None,
+                prev_actions=None) -> SearchState:
+    """SearchState for a batch of games (Search::beginSearch): root NN
+    eval, Dirichlet noise, dynamic score center, root pruning.
+
+    prev_tree / prev_actions: tree reuse — the previous search's trees
+    and the actions then played; each game re-roots at the played child
+    and falls back to a fresh root where that child was never expanded.
+    With prev_actions None, prev_tree is taken as already rooted at the
+    current positions. The reused root's stored prior gets the root
+    temperature and noise again."""
     if root_num_symmetries != 1:
         raise NotImplementedError("root_num_symmetries > 1 is not ported")
     nn = size * size
@@ -943,7 +1085,7 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
         root_prev_laddered=torch.zeros((g, nn), dtype=torch.bool,
                                        device=dev))
     if with_ladders:
-        ss.root_prev_laddered = LAD.ladder_map_chase_batch(
+        ss.root_prev_laddered = LAD.batch_solver(ladder_mode)(
             roots.pos.prev_stones.to(torch.int32), size,
             ko_loc=roots.pos.prev_ko_loc).laddered
 
@@ -969,17 +1111,7 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
     ss.dyn_score_center = torch.minimum(torch.maximum(center, expected - cap),
                                         expected + cap)
 
-    root_pol = root_ev.policy
-    if bool(sp.root_noise_enabled):
-        legal_mask = root_pol >= 0
-        n_legal = torch.clamp(legal_mask.sum(-1, keepdim=True), min=1)
-        alpha = sp.root_dirichlet_noise_total_concentration / n_legal
-        gamma = _sample_gamma(torch.where(legal_mask, alpha, 1e-6), gen)
-        noise = gamma / torch.clamp(torch.where(legal_mask, gamma, 0.0).sum(
-            -1, keepdim=True), min=1e-10)
-        mixed = (1.0 - sp.root_dirichlet_noise_weight) * root_pol + \
-            sp.root_dirichlet_noise_weight * noise
-        root_pol = torch.where(legal_mask, mixed, -1.0)
+    root_pol = _root_noise(root_ev.policy, sp, gen)
 
     stones_r = roots.pos.board.stones
     rm = roots.pos.recent_moves
@@ -1025,6 +1157,11 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
     tree.laddered[:, 0] = root_lad
     tree.term_own[:, 0] = root_town
     tree.num_nodes[:] = 1
+    if prev_tree is not None:
+        reused = _reused_tree(prev_tree, prev_actions, roots, sp, gen,
+                              root_lad, root_town, size, max_nodes)
+        tree = T.where(reused.num_nodes > 0, reused, tree)
+        ss.tree = tree
     ss.own_sum = root_ev.weight.unsqueeze(-1) * root_ev.ownership
     ss.own_sq_sum = root_ev.weight.unsqueeze(-1) * root_ev.ownership ** 2
     ss.own_weight = root_ev.weight
@@ -1166,6 +1303,25 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
             ok, ev.weight.unsqueeze(-1) * ev.ownership ** 2, 0.0)
         ss.own_weight = ss.own_weight + torch.where(ok[:, 0], ev.weight, 0.0)
     return ss
+
+
+def run_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
+               size: int, num_sims: int, max_nodes: int, max_depth: int = 64,
+               with_ladders: bool = True, ladder_mode: str = "chase",
+               prev_tree: Tree | None = None, prev_actions=None,
+               max_visits: int | None = None, active_mask=None,
+               feature_version: int = 7) -> SearchResult:
+    """One-shot search: init (with optional tree reuse), exactly num_sims
+    playouts under the max_visits cap, then the results."""
+    ss = init_search(model, roots, sp, gen, size=size, max_nodes=max_nodes,
+                     with_ladders=with_ladders, ladder_mode=ladder_mode,
+                     feature_version=feature_version, prev_tree=prev_tree,
+                     prev_actions=prev_actions)
+    run_playouts(model, ss, sp, gen, size=size, num_sims=num_sims,
+                 max_depth=max_depth, with_ladders=with_ladders,
+                 ladder_mode=ladder_mode, max_visits=max_visits,
+                 active_mask=active_mask, feature_version=feature_version)
+    return collect_results(ss)
 
 
 def collect_results(ss: SearchState) -> SearchResult:

@@ -47,7 +47,7 @@ def assert_tree_equal(jax_tree, torch_tree, path="", skip=()):
         return
     a = np.asarray(jax_tree)
     b = to_np(torch_tree)
-    if a.dtype == np.float32 or b.dtype == np.float32:
+    if a.dtype.kind == "f" or b.dtype.kind == "f":
         np.testing.assert_array_equal(a.astype(np.float32),
                                       b.astype(np.float32), err_msg=path)
     else:
@@ -62,18 +62,18 @@ def jax_batch(tree, g):
 
 def to_jax_like(template, torch_tree):
     """The port's dataclass tree as a JAX NamedTuple tree shaped like
-    `template` (leaves cast to the template's dtypes; hash lanes go back
-    to uint32). The inverse of the field walk of assert_tree_equal."""
+    `template` (arrays or jax.eval_shape structs; leaves cast to the
+    template's dtypes, hash lanes back to uint32). The inverse of the
+    field walk of assert_tree_equal."""
     if dataclasses.is_dataclass(torch_tree):
         names = [f.name for f in dataclasses.fields(torch_tree)]
         assert set(names) == set(template._fields), (names, template._fields)
         return template._replace(**{
             n: to_jax_like(getattr(template, n), getattr(torch_tree, n))
             for n in names})
-    a = np.asarray(template)
     b = to_np(torch_tree)
-    assert a.shape == b.shape, (a.shape, b.shape)
-    return jnp.asarray(b.astype(a.dtype))
+    assert tuple(template.shape) == b.shape, (template.shape, b.shape)
+    return jnp.asarray(b.astype(template.dtype))
 
 
 def jax_games_like(t_gs, size):
@@ -151,6 +151,13 @@ def random_games(size: int, g: int, n_moves: int, rules_name: str,
     return j_gs, t_gs
 
 
+def tree_cat(a, b):
+    """Two of the port's batched dataclass trees, concatenated on the
+    game axis."""
+    from katago_torch import _tensortree as T
+    return T.tree_map(lambda x, y: torch.cat([x, y]), a, b)
+
+
 def random_games_torch(size: int, g: int, n_moves: int, rules_name: str,
                        seed: int, pass_prob: float = 0.03):
     """g seeded random games of n_moves on the port alone (its stepping
@@ -209,3 +216,34 @@ def random_boards(size, g, seed, density_lo=0.15, density_hi=0.6):
                         p=[1 - density, density / 2, density / 2])
         boards.append(_remove_libertyless_chains(st, size))
     return np.stack(boards).astype(np.int32)
+
+
+REF_DIR = __import__("pathlib").Path(__file__).resolve().parent / \
+    "data" / "torch_ref"
+
+
+def load_ref(name: str):
+    """A reference fixture written by tools/make_torch_fixtures.py:
+    (dict of numpy arrays, meta dict)."""
+    import json
+    with np.load(REF_DIR / f"{name}.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    return arrays, json.loads(str(arrays.pop("meta")))
+
+
+def ref_model(size: int, seed: int = 3, dtype=torch.float32):
+    """The port's b1c6 net carrying the fixture's seeded Flax weights."""
+    from katago_torch.models import config as TC
+    from katago_torch.models import model as TM
+    from katago_torch.models import weights as TW
+    arrays, _ = load_ref(f"weights_b1c6_s{seed}")
+    tree: dict = {}
+    for key, value in arrays.items():
+        *path, leaf = key.split("/")[1:]
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    model = TM.KataGoModel(TC.get_config("b1c6"), pos_len=size, dtype=dtype)
+    model.load_state_dict(TW.from_flax_params(tree))
+    return model.eval()

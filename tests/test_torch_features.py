@@ -14,7 +14,6 @@ import torch
 
 from katago_tpu.game import ladder as JL
 from katago_tpu.models import features as JF
-from katago_torch import _tensortree as T
 from katago_torch.game import history as TH
 from katago_torch.game import ladder as TL
 from katago_torch.models import features as TF
@@ -24,14 +23,10 @@ from tests import test_torch_common as C
 SIZE = 9
 
 
-def _cat_torch(a, b):
-    return T.tree_map(lambda x, y: torch.cat([x, y]), a, b)
-
-
 def test_fill_features_v7_chase_mode_matches_jax():
     t1 = C.random_games_torch(SIZE, 3, 30, "tromp_taylor", 21)
     t2 = C.random_games_torch(SIZE, 3, 24, "japanese", 22, pass_prob=0.2)
-    t_gs = _cat_torch(t1, t2)
+    t_gs = C.tree_cat(t1, t2)
     j_gs = C.jax_games_like(t_gs, SIZE)
     g = 6
     legal = TH.legal_moves(t_gs, SIZE)
@@ -70,6 +65,28 @@ def test_fill_features_v7_chase_mode_matches_jax():
     assert C.to_np(sp[..., 18]).any()
 
 
+def test_fill_features_v7_exact_mode_matches_jax():
+    """The default exact ladders with no cached masks (current, previous
+    and pre-previous boards solved in one batch) vs the fixture
+    tests/data/torch_ref/features.npz: JAX fill_features_v7 on the same
+    games."""
+    ref, meta = C.load_ref("features")
+    t_gs = None
+    for rules, g, n, seed, pp in meta["games"]:
+        t = C.random_games_torch(SIZE, g, n, rules, seed, pass_prob=pp)
+        t_gs = t if t_gs is None else C.tree_cat(t_gs, t)
+    params = TF.FeatureParams(*(torch.tensor(v)
+                                for v in meta["feature_params"]))
+    stats = {}
+    sp, gl = TF.fill_features_v7(t_gs, SIZE, params, ladder_stats=stats)
+    np.testing.assert_array_equal(C.to_np(sp), ref["spatial"])
+    np.testing.assert_allclose(C.to_np(gl), ref["global"], rtol=0,
+                               atol=1e-6)
+    assert stats["calls"] == 1 and stats["lanes"] > 0
+    # the boards hold laddered stones and working ladder moves
+    assert ref["spatial"][..., 14].any() and ref["spatial"][..., 17].any()
+
+
 def test_fill_features_rejects_unported_versions():
     gs = TH.new_game(SIZE, C.RULESETS["tromp_taylor"][1], 8, g=1,
                      device="cpu")
@@ -78,5 +95,5 @@ def test_fill_features_rejects_unported_versions():
     import pytest
     with pytest.raises(NotImplementedError):
         TF.fill_features(gs, SIZE, params, legal, version=6)
-    with pytest.raises(NotImplementedError):
-        TF.fill_features(gs, SIZE, params, legal, ladder_mode="exact")
+    with pytest.raises(ValueError):
+        TF.fill_features(gs, SIZE, params, legal, ladder_mode="greedy")

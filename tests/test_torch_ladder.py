@@ -2,16 +2,14 @@
 through `ladder_map_chase_batch`) vs the JAX package's own off-TPU path,
 jax.vmap(ladder.ladder_map_chase): the random-board and ko/atari cases of
 tests/test_chase_pallas.py and the K1 cases of ops/cases.py — exact.
-Batches keep the shapes of the first two tests (14 boards at 9x9, 2 at
-19x19), so JAX compiles each size once."""
+The JAX results are the reference fixture tests/data/torch_ref/chase.npz
+(tools/make_torch_fixtures.py); each test rebuilds its boards and checks
+them against the fixture's inputs first."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from katago_tpu.game import ladder as JL
 from katago_torch.game import ladder as TL
 from katago_torch.ops import cases as CASES
 from katago_torch.ops import chase as K1
@@ -19,18 +17,22 @@ from katago_torch.ops import chase as K1
 from tests import test_torch_common as C
 
 FIELDS = ("laddered", "working_vs_black", "working_vs_white")
+REF, _ = C.load_ref("chase")
 
 
-def _compare(stones, ko, size):
-    ref = jax.vmap(lambda s, k: JL.ladder_map_chase(s, size, ko_loc=k))(
-        jnp.asarray(stones), jnp.asarray(ko))
-    got = TL.ladder_map_chase_batch(torch.from_numpy(stones), size,
-                                    ko_loc=torch.from_numpy(ko.astype(np.int64)))
-    for name in FIELDS:
-        a = np.asarray(getattr(ref, name))
-        b = C.to_np(getattr(got, name))
-        assert (a == b).all(), f"{name} mismatch at {np.argwhere(a != b)[:5]}"
-    return np.asarray(ref.laddered)
+def _compare(name, stones, ko, size):
+    """The port on stones/ko (which must be the fixture set's inputs)
+    against the fixture's JAX masks; returns the laddered masks."""
+    np.testing.assert_array_equal(stones, REF[f"{name}/stones"])
+    np.testing.assert_array_equal(ko, REF[f"{name}/ko"])
+    got = TL.ladder_map_chase_batch(
+        torch.from_numpy(stones.astype(np.int32)), size,
+        ko_loc=torch.from_numpy(ko.astype(np.int64)))
+    for field in FIELDS:
+        a = REF[f"{name}/{field}"]
+        b = C.to_np(getattr(got, field))
+        assert (a == b).all(), f"{field} mismatch at {np.argwhere(a != b)[:5]}"
+    return REF[f"{name}/laddered"]
 
 
 def test_chase_9x9_random_ko_and_atari_boards():
@@ -45,14 +47,14 @@ def test_chase_9x9_random_ko_and_atari_boards():
     stones = np.concatenate([boards, atari.reshape(1, -1), ko_board[None]])
     ko = np.full((stones.shape[0],), -1, np.int32)
     ko[-1] = 4               # a ko point set: exercises the lane masking
-    laddered = _compare(stones, ko, size)
+    laddered = _compare("random9", stones, ko, size)
     assert laddered.any()    # the boards do hold captured ladders
 
 
 def test_chase_19x19_random_boards():
     size = 19
     stones = C.random_boards(size, 2, 1)
-    _compare(stones, np.full((2,), -1, np.int32), size)
+    _compare("random19", stones, np.full((2,), -1, np.int32), size)
 
 
 @pytest.mark.parametrize("size,kind", [(9, "random"), (7, "chase_boards"),
@@ -95,7 +97,7 @@ def test_chase_dense_boards_reach_every_branch():
     size = 9
     steps = TL.default_max_steps(size)
     stones, ko, mx = CASES.chase_cases(size, 14, 6, steps)["dense"]
-    _compare(C.to_np(stones), C.to_np(ko).astype(np.int32), size)
+    _compare("dense9", C.to_np(stones), C.to_np(ko).astype(np.int32), size)
     events = _plain_stats(stones, ko, size, mx)["events"]
     for name in ("suicide_extension", "ko_ban", "overflow",
                  "double_ko_shape"):
@@ -107,7 +109,8 @@ def test_chase_full_board_ladder_and_max_steps():
     steps = TL.default_max_steps(size)
     cases = CASES.chase_cases(size, 1, 0, steps)
     stones, ko, _ = cases["ladder"]
-    laddered = _compare(C.to_np(stones), C.to_np(ko).astype(np.int32), size)
+    laddered = _compare("ladder19", C.to_np(stones),
+                        C.to_np(ko).astype(np.int32), size)
     assert laddered[0].reshape(size, size)[1, 1]   # the runner is captured
     stats = _plain_stats(stones, ko, size, steps)
     assert stats["max_lane_plies"] == 66 and stats["events"]["max_steps"] == 0

@@ -1,0 +1,482 @@
+"""Reference outputs of katago_tpu for the PyTorch port's CPU tests.
+
+    JAX_PLATFORMS=cpu python tools/make_torch_fixtures.py [--only NAME ...]
+
+Runs the JAX package on the CPU on seeded inputs and writes compressed
+npz files under tests/data/torch_ref/. Every file holds the arrays the
+tests compare against plus a `meta` entry: a JSON string with the seed
+and the arguments that made it. The port's tests read these files
+instead of compiling the JAX programs themselves (a JAX search or ladder
+compile costs seconds to a minute each on the CPU).
+
+Fixtures:
+  weights_b1c6_sN  seeded Flax parameters of the b1c6 net
+                (size-independent), seeds 3 and 4
+  search        5x5 SearchDriver searches with ladder planes on, then one
+                search that reuses the trees after each game's most
+                visited move (prev_tree / prev_actions)
+  chase         jax.vmap(ladder_map_chase) on the boards of
+                tests/test_torch_ladder.py
+  ladder_exact  ladder_map (the exact backtracking solver) on seeded
+                random 9x9 and 19x19 boards, some with a ko point, with
+                reduced node budget / depth / iteration caps, and on the
+                board of the longest lane met on the card
+  selfplay      play_games at 5x5, b1c6 fp32, 2 games, 8 visits, tree
+                reuse, PlaySettings.for_testing(8), explicit rules, root
+                noise off, move temperatures 0, played to the end
+  resign        the same with resign_threshold -0.05 over 2 searches
+  features      fill_features_v7 with its default exact ladders (the
+                3-solve path) on seeded random 9x9 games
+  handicap      _place_handicap, _adjust_komi_to_even and
+                _place_start_positions on 9x9 batches
+  npz_schema    (JSON) keys, dtypes and per-row shapes of the training
+                npz at 5x5, 7x7 and 19x19
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "tests" / "data" / "torch_ref"
+sys.path.insert(0, str(ROOT))
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+from katago_tpu.dataio import trainingwrite as JTW  # noqa: E402
+from katago_tpu.dataio.poses import PositionSample  # noqa: E402
+from katago_tpu.game import history as JH  # noqa: E402
+from katago_tpu.game import ladder as JL  # noqa: E402
+from katago_tpu.game import rules as JR  # noqa: E402
+from katago_tpu.models import config as JC  # noqa: E402
+from katago_tpu.models import features as JF  # noqa: E402
+from katago_tpu.models.model import KataGoModel as JModel  # noqa: E402
+from katago_tpu.search.driver import SearchDriver as JDriver  # noqa: E402
+from katago_tpu.search.params import SearchParams as JParams  # noqa: E402
+from katago_tpu.selfplay import loop as JLOOP  # noqa: E402
+from katago_tpu.selfplay.playsettings import PlaySettings  # noqa: E402
+from katago_torch.ops import cases as CASES  # noqa: E402
+
+from tests import test_torch_common as C  # noqa: E402
+
+WEIGHT_SEED = 3
+# the selfplay games end (two passes) within the default 60 moves
+SELFPLAY_WEIGHT_SEED = 4
+SEARCH_SIZE = 5
+SEARCH_VISITS = 24
+# both roots hold laddered stones, and so do the boards before them
+SEARCH_MOVES = [[20, 6, 2, 8, 11], [20, 2, 5, 7, 4]]
+RESULT_FIELDS = ("root_visits", "child_visits", "root_policy_prior",
+                 "root_winloss", "root_score_mean", "root_lead",
+                 "root_utility", "root_score_stdev", "child_winloss",
+                 "child_score_mean", "root_ownership")
+LADDER_FIELDS = ("laddered", "working_vs_black", "working_vs_white")
+
+
+def save(name: str, arrays: dict, meta: dict) -> None:
+    OUT.mkdir(parents=True, exist_ok=True)
+    arrays = dict(arrays, meta=np.array(json.dumps(meta, sort_keys=True)))
+    np.savez_compressed(OUT / f"{name}.npz", **arrays)
+    kb = (OUT / f"{name}.npz").stat().st_size / 1024
+    print(f"wrote {name}.npz ({kb:.1f} KiB)", flush=True)
+
+
+def jax_model(size: int):
+    return JModel(JC.get_config("b1c6"), pos_len=size, dtype=jnp.float32)
+
+
+def jax_params(seed: int = WEIGHT_SEED):
+    return C.flax_params(jax_model(SEARCH_SIZE), SEARCH_SIZE, seed)
+
+
+def flat_params(params) -> dict:
+    leaves = jax.tree_util.tree_flatten_with_path(params["params"])[0]
+    return {"w/" + "/".join(k.key for k in path): np.asarray(v)
+            for path, v in leaves}
+
+
+def make_weights():
+    for seed in (WEIGHT_SEED, SELFPLAY_WEIGHT_SEED):
+        save(f"weights_b1c6_s{seed}", flat_params(jax_params(seed)),
+             {"config": "b1c6", "seed": seed,
+              "made_by": "tests.test_torch_common.flax_params"})
+
+
+def _search_params(**kw):
+    return dataclasses.replace(JParams.for_selfplay(),
+                               root_noise_enabled=False, **kw).to_arr()
+
+
+def _jax_roots(size, moves_per_game, max_hist=64):
+    g = len(moves_per_game)
+    rules = JH.RulesArr.from_rules(JR.Rules.tromp_taylorish())
+    gs = C.jax_batch(JH.new_game(size, rules, max_hist), g)
+    step = jax.jit(jax.vmap(lambda s, m: JH.step(s, m, size)[0]))
+    for k in range(len(moves_per_game[0])):
+        gs = step(gs, jnp.asarray([m[k] for m in moves_per_game], jnp.int32))
+    return gs, step
+
+
+def _result_arrays(res, prefix):
+    out = {f"{prefix}{n}": np.asarray(getattr(res, n)) for n in RESULT_FIELDS}
+    tree = res.ss.tree
+    out[f"{prefix}num_nodes"] = np.asarray(tree.num_nodes)
+    out[f"{prefix}laddered"] = np.asarray(tree.laddered)
+    out[f"{prefix}root_prev_laddered"] = np.asarray(res.ss.root_prev_laddered)
+    return out
+
+
+def make_search():
+    size, visits = SEARCH_SIZE, SEARCH_VISITS
+    params = jax_params()
+    jm = jax_model(size)
+    roots, step = _jax_roots(size, SEARCH_MOVES)
+    drv = JDriver(jm.apply, params, _search_params(), size=size,
+                  max_nodes=visits + 3, chunk_size=visits // 2,
+                  with_ladders=True)
+    res = drv.search(roots, jax.random.PRNGKey(0), max_visits=visits + 1)
+    actions = np.asarray(res.child_visits).argmax(1).astype(np.int32)
+    roots2 = step(roots, jnp.asarray(actions))
+    res2 = drv.search(roots2, jax.random.PRNGKey(1), max_visits=visits + 1,
+                      prev_tree=res.ss.tree,
+                      prev_actions=jnp.asarray(actions))
+    arrays = {**_result_arrays(res, "s1/"), **_result_arrays(res2, "s2/"),
+              "actions": actions}
+    save("search", arrays, {
+        "size": size, "visits": visits, "max_nodes": visits + 3,
+        "chunk_size": visits // 2, "moves": SEARCH_MOVES,
+        "weights": f"weights_b1c6_s{WEIGHT_SEED}",
+        "params": "for_selfplay, root noise off",
+        "rules": "tromp_taylor", "max_hist": 64, "with_ladders": True,
+        "reuse": "actions = argmax of s1 child_visits, then a search with "
+                 "prev_tree=s1 trees, prev_actions=actions"})
+
+
+def _chase(stones, ko, size):
+    ref = jax.vmap(lambda s, k: JL.ladder_map_chase(s, size, ko_loc=k))(
+        jnp.asarray(stones), jnp.asarray(ko))
+    return {n: np.asarray(getattr(ref, n)) for n in LADDER_FIELDS}
+
+
+def make_chase():
+    """The boards of tests/test_torch_ladder.py."""
+    arrays = {}
+
+    def add(name, stones, ko, size):
+        stones = np.asarray(stones, np.int32)
+        ko = np.asarray(ko, np.int32)
+        arrays[f"{name}/stones"] = stones
+        arrays[f"{name}/ko"] = ko
+        for k, v in _chase(stones, ko, size).items():
+            arrays[f"{name}/{k}"] = v
+
+    size = 9
+    boards = C.random_boards(size, 12, 0)
+    atari = np.zeros((size, size), np.int32)
+    atari[1, 1] = 2
+    atari[0, 1] = 1
+    atari[1, 0] = 1
+    atari[1, 2] = 1          # atari: lone liberty at (2,1)
+    ko_board = C.random_boards(size, 1, 5)[0]
+    stones = np.concatenate([boards, atari.reshape(1, -1), ko_board[None]])
+    ko = np.full((stones.shape[0],), -1, np.int32)
+    ko[-1] = 4               # a ko point set: exercises the lane masking
+    add("random9", stones, ko, size)
+    add("random19", C.random_boards(19, 2, 1), np.full((2,), -1), 19)
+    steps9 = 4 * 9 + 14
+    st, k, _ = CASES.chase_cases(9, 14, 6, steps9)["dense"]
+    add("dense9", C.to_np(st), C.to_np(k), 9)
+    steps19 = 4 * 19 + 14
+    st, k, _ = CASES.chase_cases(19, 1, 0, steps19)["ladder"]
+    add("ladder19", C.to_np(st), C.to_np(k), 19)
+    save("chase", arrays, {
+        "random9": "tests.test_torch_common.random_boards(9, 12, 0) + an "
+                   "atari board + random_boards(9, 1, 5) with ko point 4",
+        "random19": "random_boards(19, 2, 1)",
+        "dense9": "katago_torch.ops.cases.chase_cases(9, 14, 6, 50)"
+                  "['dense']",
+        "ladder19": "chase_cases(19, 1, 0, 90)['ladder']",
+        "solver": "jax.vmap(katago_tpu.game.ladder.ladder_map_chase)"})
+
+
+# (name, size, boards, seed, density_lo, density_hi, ladder_map kwargs)
+EXACT_SETS = [
+    ("random9", 9, 16, 11, 0.15, 0.6, {}),
+    ("dense9", 9, 8, 12, 0.55, 0.8, {}),
+    ("random19", 19, 4, 13, 0.15, 0.6, {}),
+    ("caps9", 9, 8, 14, 0.3, 0.7,
+     {"budget": 6, "max_depth": 6, "max_iters": 40, "max_chains": 5}),
+    ("iters9", 9, 8, 15, 0.3, 0.7, {"max_iters": 9}),
+]
+
+
+# The board of the longest exact-solver lane (1918 iterations: white's
+# two-liberty edge stone at 189, black's first move at 188) that
+# chip_smoke.py's selfplay phase met on an H100; its nine stones as
+# (point, color).
+LONGTAIL19 = [(19, 2), (132, 1), (151, 2), (170, 1), (182, 1), (189, 2),
+              (196, 1), (219, 1), (240, 2)]
+
+
+def make_ladder_exact():
+    arrays = {}
+    meta = {"solver": "katago_tpu.game.ladder.ladder_map", "sets": {}}
+    for name, size, n, seed, lo, hi, kw in EXACT_SETS:
+        stones = C.random_boards(size, n, seed, lo, hi)
+        rng = np.random.default_rng(seed + 1000)
+        # a ko point on every other board: an empty point (legal or not,
+        # the solver only masks premoves with it)
+        ko = np.full((n,), -1, np.int32)
+        for i in range(0, n, 2):
+            empty = np.flatnonzero(stones[i] == 0)
+            ko[i] = rng.choice(empty)
+        t0 = time.time()
+        fn = jax.jit(jax.vmap(
+            lambda s, k: JL.ladder_map(s, size, ko_loc=k, **kw)))
+        ref = fn(jnp.asarray(stones), jnp.asarray(ko))
+        arrays[f"{name}/stones"] = stones
+        arrays[f"{name}/ko"] = ko
+        for f in LADDER_FIELDS:
+            arrays[f"{name}/{f}"] = np.asarray(getattr(ref, f))
+        meta["sets"][name] = {
+            "size": size, "boards": n, "seed": seed,
+            "density": [lo, hi], "ko_seed": seed + 1000,
+            "ladder_map_kwargs": kw,
+            "boards_by": "tests.test_torch_common.random_boards"}
+        print(f"  ladder_exact {name}: {time.time() - t0:.1f} s, "
+              f"{int(np.asarray(ref.laddered).sum())} laddered points",
+              flush=True)
+    stones = np.zeros((1, 361), np.int32)
+    for point, color in LONGTAIL19:
+        stones[0, point] = color
+    ko = np.full((1,), -1, np.int32)
+    ref = jax.jit(jax.vmap(lambda s, k: JL.ladder_map(s, 19, ko_loc=k)))(
+        jnp.asarray(stones), jnp.asarray(ko))
+    arrays["longtail19/stones"] = stones
+    arrays["longtail19/ko"] = ko
+    for f in LADDER_FIELDS:
+        arrays[f"longtail19/{f}"] = np.asarray(getattr(ref, f))
+    meta["sets"]["longtail19"] = {
+        "size": 19, "boards": 1, "stones": LONGTAIL19, "ko": -1,
+        "ladder_map_kwargs": {},
+        "boards_by": "the longest exact-solver lane of chip_smoke.py's "
+                    "selfplay phase on an H100"}
+    save("ladder_exact", arrays, meta)
+
+
+SELFPLAY = dict(size=5, num_games=2, visits=8, seed=7,
+                komi=[7.5, 6.0], max_moves=None)
+
+
+def selfplay_params():
+    return _search_params(chosen_move_temperature=0.0,
+                          chosen_move_temperature_early=0.0)
+
+
+def _play(name: str, **extra):
+    """play_games on the SELFPLAY setup (plus `extra` arguments): rows,
+    stats and npz arrays."""
+    s = SELFPLAY
+    size, g = s["size"], s["num_games"]
+    params = jax_params(SELFPLAY_WEIGHT_SEED)
+    rules = JH.RulesArr.from_rules(JR.Rules.tromp_taylorish())
+    game_rules = jax.tree.map(
+        lambda x: jnp.broadcast_to(x, (g,) + x.shape).copy(), rules)
+    game_rules = game_rules._replace(komi=jnp.asarray(s["komi"], jnp.float32))
+    sp = dataclasses.replace(JParams.for_selfplay(), root_noise_enabled=False,
+                             chosen_move_temperature=0.0,
+                             chosen_move_temperature_early=0.0)
+    t0 = time.time()
+    data, stats = JLOOP.play_games(
+        jax_model(size).apply, params, size=size, num_games=g,
+        visits=s["visits"], search_params=sp,
+        rng=jax.random.PRNGKey(s["seed"]), tree_reuse=True,
+        play_settings=PlaySettings.for_testing(s["visits"]),
+        game_rules=game_rules, **extra)
+    print(f"  play_games: {time.time() - t0:.1f} s", flush=True)
+    arrays = {f"data/{f.name}": getattr(data, f.name)
+              for f in dataclasses.fields(data)}
+    for k, v in stats.items():
+        arrays[f"stats/{k}"] = np.asarray(v)
+    packed = data.to_npz_arrays(size, stats["white_minus_black"],
+                                komi_white=stats["komi_white"])
+    for k, v in packed.items():
+        arrays[f"npz/{k}"] = v
+    save(name, arrays, {
+        **s, **extra, "weights": f"weights_b1c6_s{SELFPLAY_WEIGHT_SEED}",
+        "rules": "tromp_taylor, per-game "
+        "komi", "search_params": "for_selfplay, root noise off, "
+        "chosen_move_temperature(_early) 0", "tree_reuse": True,
+        "play_settings": "PlaySettings.for_testing(visits)",
+        "rng": "jax.random.PRNGKey(seed)", "ladder_mode": "chase",
+        "all_finished": bool(stats["all_finished"])})
+
+
+def make_selfplay():
+    _play("selfplay")
+
+
+def make_resign():
+    """Game 0 resigns at move 14 (two full searches below -0.05)."""
+    _play("resign", resign_threshold=-0.05, resign_consec_turns=2)
+
+
+# (rules, games, moves, seed, pass_prob) of tests.test_torch_common's
+# random_games_torch
+FEATURE_GAMES = [("tromp_taylor", 3, 40, 31, 0.03),
+                 ("japanese", 3, 30, 32, 0.2)]
+
+
+def make_features():
+    size = 9
+    t_gs = None
+    for rules, g, n, seed, pp in FEATURE_GAMES:
+        t = C.random_games_torch(size, g, n, rules, seed, pass_prob=pp)
+        t_gs = t if t_gs is None else C.tree_cat(t_gs, t)
+    j_gs = C.jax_games_like(t_gs, size)
+    params = JF.FeatureParams(jnp.float32(0.5), jnp.float32(0.25),
+                              jnp.bool_(False))
+    sp, gl = jax.jit(jax.vmap(
+        lambda gs_: JF.fill_features_v7(gs_, size, params)))(j_gs)
+    save("features", {"spatial": np.asarray(sp), "global": np.asarray(gl)},
+         {"size": size, "games": FEATURE_GAMES,
+          "games_by": "tests.test_torch_common.random_games_torch, "
+                      "concatenated in order",
+          "feature_params": [0.5, 0.25, False],
+          "call": "jax.vmap(fill_features_v7(gs, size, params)): legal "
+                  "moves computed inside, ladder_mode exact, no cached "
+                  "masks"})
+
+
+HANDICAP = dict(size=9, num_handicap=[0, 2, 3, 5, 9, 4], seed=21,
+                compensate=[True, True, False, True, False, True])
+
+
+def make_handicap():
+    s = HANDICAP
+    size = s["size"]
+    g = len(s["num_handicap"])
+    params = jax_params()
+    rules = JH.RulesArr.from_rules(JR.Rules.tromp_taylorish())
+    games = C.jax_batch(JH.new_game(size, rules, 32), g)
+    rng = np.random.default_rng(s["seed"])
+    komi = np.round(rng.normal(7.0, 3.0, g) * 2) / 2
+    games = games._replace(rules=games.rules._replace(
+        komi=jnp.asarray(komi, jnp.float32)))
+    games = JLOOP._place_handicap(games, np.asarray(s["num_handicap"]), size)
+    sp = _search_params()
+    feat_params = JF.FeatureParams(
+        draw_equiv_wins_for_white=sp.draw_equivalent_wins_for_white,
+        playout_doubling_advantage=sp.playout_doubling_advantage,
+        conservative_pass=sp.conservative_pass)
+    feat_fn = jax.jit(jax.vmap(JF.fill_features_v7, in_axes=(0, None, None)),
+                      static_argnums=1)
+    adj = JLOOP._adjust_komi_to_even(
+        games, np.asarray(s["compensate"]), jax_model(size).apply, params,
+        feat_fn, feat_params, size)
+    # start positions: games 0 and 2 start from pose samples (stones,
+    # context moves incl. a pass, the sample's turn number); game 1 not
+    stones = np.zeros(size * size, np.int8)
+    stones[[20, 21, 30, 40]] = (1, 2, 1, 2)
+    samples = [PositionSample(x_size=size, y_size=size, stones=stones,
+                              next_pla=2, moves=[(2, 22), (1, 81)],
+                              initial_turn_number=6),
+               None,
+               PositionSample(x_size=size, y_size=size, stones=stones,
+                              next_pla=1, moves=[], initial_turn_number=3)]
+    starts = C.jax_batch(JH.new_game(size, rules, 32), len(samples))
+    starts = JLOOP._place_start_positions(starts, samples, size)
+    start_arrays = {f"start/{k}": np.asarray(v) for k, v in (
+        ("stones", starts.pos.board.stones),
+        ("to_move", starts.pos.to_move), ("move_num", starts.pos.move_num),
+        ("pos_hash", starts.pos.board.pos_hash),
+        ("recent_moves", starts.pos.recent_moves),
+        ("prev_stones", starts.pos.prev_stones),
+        ("ko_hash_hist", starts.ko_hash_hist),
+        ("hist_len", starts.hist_len))}
+    save("handicap", {**start_arrays,
+        "komi_in": komi.astype(np.float32),
+        "stones": np.asarray(games.pos.board.stones),
+        "to_move": np.asarray(games.pos.to_move),
+        "pos_hash": np.asarray(games.pos.board.pos_hash),
+        "prev_stones": np.asarray(games.pos.prev_stones),
+        "prev_prev_stones": np.asarray(games.pos.prev_prev_stones),
+        "ko_hash_hist": np.asarray(games.ko_hash_hist),
+        "komi_out": np.asarray(adj.rules.komi)}, {
+        **s, "weights": f"weights_b1c6_s{WEIGHT_SEED}",
+        "rules": "tromp_taylor",
+        "max_hist": 32, "komi_in": "round(N(7, 3) * 2) / 2 from "
+        "numpy default_rng(seed)", "feature_params": "for_selfplay",
+        "start_samples": "black 20, 30 and white 21, 40; game 0: white "
+        "to move, context moves white 22 then black pass, turn 6; game 1: "
+        "none; game 2: black to move, no moves, turn 3"})
+
+
+def make_schema():
+    schema = {}
+    for size in (5, 7, 19):
+        area = size * size
+        z = np.zeros
+        arrays = JTW.pack_rows(
+            spatial=z((1, size, size, 22), np.float32),
+            global_in=z((1, 19), np.float32),
+            policy_target=z((1, area + 1), np.float32),
+            next_policy_target=z((1, area + 1), np.float32),
+            value_target=z((1, 3), np.float32),
+            td_targets=z((1, 5, 4), np.float32),
+            score_target=z((1,), np.float32), lead_target=z((1,), np.float32),
+            ownership_target=z((1, area), np.float32),
+            self_komi=z((1,), np.float32), turn_idx=z((1,), np.float32),
+            visits=z((1,), np.float32), size=size,
+            variance_time=z((1,), np.float32),
+            futurepos=z((1, 2, area), np.float32),
+            seki_diff=z((1, area), np.float32),
+            scoring=z((1, area), np.float32),
+            q_winloss=z((1, area + 1), np.float32),
+            q_score=z((1, area + 1), np.float32),
+            q_visits=z((1, area + 1), np.int32),
+            game_hash=z((1,), np.uint64), row_weight=z((1,), np.float32))
+        schema[str(size)] = {k: [str(v.dtype), list(v.shape[1:])]
+                             for k, v in sorted(arrays.items())}
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "npz_schema.json").write_text(json.dumps(
+        {"made_by": "katago_tpu.dataio.trainingwrite.pack_rows, one row",
+         "per_row": schema}, indent=1, sort_keys=True) + "\n")
+    print("wrote npz_schema.json", flush=True)
+
+
+MAKERS = {"weights_b1c6": make_weights, "search": make_search,
+          "chase": make_chase, "ladder_exact": make_ladder_exact,
+          "selfplay": make_selfplay, "resign": make_resign,
+          "features": make_features,
+          "handicap": make_handicap,
+          "npz_schema": make_schema}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", nargs="*", choices=sorted(MAKERS),
+                    help="fixtures to write (default: all)")
+    opts = ap.parse_args()
+    torch.set_num_threads(1)
+    for name in opts.only or MAKERS:
+        t0 = time.time()
+        MAKERS[name]()
+        print(f"{name}: {time.time() - t0:.1f} s", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
