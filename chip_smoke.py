@@ -26,7 +26,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the sgf writer into a temporary directory and are read back and
      checked against the npz schema of tests/data/torch_ref/; both
      kernels' launch counters rise during the games;
-  7. report: the card's name and power limit, each kernel's time beside
+  7. the trainer (`run_train_phase`): run_training on phase 6's shard
+     (459 rows at 19x19, served again each epoch) with b18c384nbt in
+     float32 (TF32 off) at batch 256: TRAIN_WARMUP SGD steps, then
+     TRAIN_STEPS more resumed from their checkpoint (timed: data,
+     host-to-device, forward+backward, optimizer+EMA), then MUON_STEPS
+     steps of -optimizer normuon from scratch; every loss term and gnorm
+     finite; the checkpoint restored, saved again and restored equal, the
+     export equal to the restored EMA, the .bin.gz written; then one SGD
+     step of CHECK_MODEL at batch CHECK_BATCH from the shard on the card
+     and on the CPU from the same weights, loss terms and updates held
+     within stated tolerances;
+  8. selfplay from phase 7's export (`run_models_dir_phase`):
+     run_selfplay(models_dir=...) at 19x19, 128 games, 32 visits, bf16,
+     every move recorded, P8_MOVES moves: the output directory is named
+     after the export and the shard holds rows;
+  9. report: the card's name and power limit, each kernel's time beside
      its plain version's and its bound, launches per search and per
      selfplay move, playouts/s, a `kernels` JSON line, and the result
      line last.
@@ -55,9 +70,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -71,6 +88,17 @@ MODEL = "b18c384nbt"
 SEED = 0
 SP_VISITS = 32
 SP_MOVES = 16
+TRAIN_BATCH = 256           # the reference's training batch size
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 10
+MUON_STEPS = 2
+TRAIN_LR = 6e-5
+CHECK_MODEL = "b6c96"       # the same block kinds, small enough for the CPU
+CHECK_BATCH = 16
+CHECK_LOSS_RTOL = 1e-4      # loss terms and gnorm, card vs CPU
+CHECK_UPDATE_REL = 1e-3     # updates, of each tensor's largest update
+P8_MOVES = 2
+F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 REF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_ref"
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -224,7 +252,7 @@ def check_exact_ladders(dev) -> None:
         f"({len(meta['sets'])} sets)")
 
 
-def run_selfplay_phase(model, gen, dev) -> dict:
+def run_selfplay_phase(model, gen, dev, work: Path) -> dict:
     """Selfplay at the production shape: play_games at 19x19 with the
     b18c384nbt net in bf16, 128 games, SearchParams.for_selfplay(),
     PlaySettings.for_selfplay() (policy-init openings, cheap/full
@@ -233,12 +261,11 @@ def run_selfplay_phase(model, gen, dev) -> dict:
     cuts, both for the time limit: SP_VISITS = 32 visits per move
     (selfplay uses 600) and SP_MOVES = 16 moves per game (games are not
     played to the end). The shard and the sgfs go through the port's
-    writers into a temporary directory and are read back: keys, dtypes
-    and per-row shapes equal the schema pinned by the CPU fixture,
-    rows > 0, policy targets sum to 1, every float is finite, and both
-    kernels were launched during the games. Returns the phase's numbers."""
-    import tempfile
-
+    writers into work/tdata (phase 7 trains on it) and are read back:
+    keys, dtypes and per-row shapes equal the schema pinned by the CPU
+    fixture, rows > 0, policy targets sum to 1, every float is finite,
+    and both kernels were launched during the games. Returns the phase's
+    numbers."""
     import numpy as np
 
     from katago_torch.cli.selfplay_cmd import game_records
@@ -276,15 +303,16 @@ def run_selfplay_phase(model, gen, dev) -> dict:
                              f"{pol_sum.max()}, not 1")
     arrays = data.to_npz_arrays(SIZE, stats["white_minus_black"],
                                 komi_white=stats["komi_white"])
-    with tempfile.TemporaryDirectory() as tmp:
-        shard = Path(tmp) / f"batch000000_{SEED}_s{SIZE}.npz"
-        np.savez_compressed(shard, **arrays)
-        sgfs = Path(tmp) / f"batch000000_{SEED}.sgfs"
-        sgfs.write_text("\n".join(game_records(data, stats, SIZE, GAMES,
-                                                None)) + "\n")
-        npz_bytes, sgf_bytes = shard.stat().st_size, sgfs.stat().st_size
-        with np.load(shard) as z:
-            back = {k: z[k] for k in z.files}
+    tdata = work / "tdata"
+    tdata.mkdir(parents=True)
+    shard = tdata / f"batch000000_{SEED}_s{SIZE}.npz"
+    np.savez_compressed(shard, **arrays)
+    sgfs = work / f"batch000000_{SEED}.sgfs"
+    sgfs.write_text("\n".join(game_records(data, stats, SIZE, GAMES,
+                                            None)) + "\n")
+    npz_bytes, sgf_bytes = shard.stat().st_size, sgfs.stat().st_size
+    with np.load(shard) as z:
+        back = {k: z[k] for k in z.files}
     if sorted(back) != sorted(schema):
         raise AssertionError(f"npz keys {sorted(back)} != {sorted(schema)}")
     for k, (dtype, shape) in schema.items():
@@ -334,6 +362,271 @@ def run_selfplay_phase(model, gen, dev) -> dict:
         log("selfplay longest exact lane " + json.dumps(
             lad["longest_lane"]))
     return out
+
+
+def smi_query(fields: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def forward_flops(model, size: int, batch: int, dev) -> float:
+    """Multiply-add FLOPs (2 per MAC) of one forward of model at batch,
+    reckoned from the shapes its convolutions and dense layers see (one
+    forward at batch 1, scaled: every layer is linear in the batch)."""
+    from katago_torch.models import model as M
+    flops = [0.0]
+
+    def conv_hook(mod, args, out):
+        k = mod.kernel.shape
+        flops[0] += 2.0 * out.numel() * k[1] * k[2] * k[3]
+
+    def dense_hook(mod, args, out):
+        flops[0] += 2.0 * out.numel() * mod.kernel.shape[1]
+
+    hooks = [m.register_forward_hook(conv_hook if isinstance(m, M.ConvCore)
+                                     else dense_hook)
+             for m in model.modules()
+             if isinstance(m, (M.ConvCore, M.Dense))]
+    spatial = torch.ones((1, size, size, 22), device=dev)
+    with torch.no_grad():
+        model(spatial, torch.zeros((1, 19), device=dev))
+    for h in hooks:
+        h.remove()
+    return flops[0] * batch
+
+
+def check_step_card_vs_cpu(shard: Path, dev) -> dict:
+    """One SGD step of CHECK_MODEL (float32, TF32 off) at CHECK_BATCH rows
+    of the shard, on the card and on the CPU from the same weights: every
+    loss term and gnorm within CHECK_LOSS_RTOL, each tensor's update (new
+    minus old params) within CHECK_UPDATE_REL of its largest entry plus
+    1e-6 of the largest update of the net (the floor covers tensors whose
+    gradient is rounding noise, such as the score-belief mixture bias).
+    Reports the worst update error relative to its tensor's largest entry
+    over the tensors whose updates reach 1e-3 of the net's largest, and
+    the worst error as a fraction of its limit."""
+    from katago_torch.cli.train_cmd import make_model
+    from katago_torch.dataio import trainingwrite as TW
+    from katago_torch.train import train_step as TS
+
+    rows = {k: torch.from_numpy(v[:CHECK_BATCH])
+            for k, v in TW.read_npz(str(shard), SIZE).items()}
+    out = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        model = make_model(SIZE, CHECK_MODEL, d, seed=SEED)
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        opt = TS.make_optimizer(lr=0.01, kind="sgd")
+        state = TS.init_train_state(params, opt)
+        new, metrics = TS.make_train_step(model, opt)(
+            state, {k: v.to(d) for k, v in rows.items()})
+        out[where] = ({k: float(v) for k, v in metrics.items()},
+                      {k: (new.params[k] - state.params[k]).cpu()
+                       for k in params})
+    (m_gpu, u_gpu), (m_cpu, u_cpu) = out["card"], out["cpu"]
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-5)
+                   for k in m_cpu)
+    for k in m_cpu:
+        if not abs(m_gpu[k] - m_cpu[k]) <= CHECK_LOSS_RTOL * abs(m_cpu[k]) \
+                + 1e-5:
+            raise AssertionError(f"card vs CPU: {k} {m_gpu[k]} vs "
+                                 f"{m_cpu[k]}")
+    net_max = max(float(u.abs().max()) for u in u_cpu.values())
+    upd_err, worst = 0.0, 0.0
+    for k, u in u_cpu.items():
+        err = float((u_gpu[k] - u).abs().max())
+        scale = float(u.abs().max())
+        limit = CHECK_UPDATE_REL * scale + 1e-6 * net_max
+        worst = max(worst, err / limit)
+        if scale >= 1e-3 * net_max:
+            upd_err = max(upd_err, err / scale)
+        if err > limit:
+            raise AssertionError(f"card vs CPU: update of {k} differs by "
+                                 f"{err} (largest entry {scale})")
+    return {"loss_max_rel_err": loss_err, "update_max_rel_err": upd_err,
+            "update_worst_of_limit": worst, "loss": m_gpu["loss"],
+            "gnorm": m_gpu["gnorm"]}
+
+
+def run_train_phase(work: Path, dev) -> dict:
+    """Phase 7 (see the module docstring): run_training at b18c384nbt,
+    float32, batch TRAIN_BATCH on phase 6's shard; returns the numbers."""
+    import gzip
+
+    from katago_torch.cli import train_cmd as TCMD
+    from katago_torch.models import config as MC
+    from katago_torch.train import checkpoint as C
+    from katago_torch.train import train_step as TS
+
+    data, ckpt, export = work / "tdata", work / "ckpt", work / "export"
+    shard = next(data.glob("*.npz"))
+    lines = []
+    common = dict(size=SIZE, config_name=MODEL, batch_size=TRAIN_BATCH,
+                  lr=TRAIN_LR, seed=SEED, device=dev, log=lines.append)
+    with TS.float32_precision():
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+    log(f"phase train: {MODEL} float32, batch {TRAIN_BATCH}; inside the "
+        f"step allow_tf32 matmul={tf32[0]} cudnn={tf32[1]}")
+
+    def finite(out, what):
+        for i, m in enumerate(out["metrics"]):
+            bad = [k for k, v in m.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{what} step {i}: {bad} not finite")
+
+    t0 = time.time()
+    warm = TCMD.run_training(str(data), str(ckpt), None, steps=TRAIN_WARMUP,
+                             **common)
+    finite(warm, "warm-up")
+    warm_s = time.time() - t0
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = TCMD.run_training(str(data), str(ckpt), str(export),
+                            steps=TRAIN_STEPS, timings=timings, **common)
+    run_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    clocks = smi_query("name,power.limit,power.draw,clocks.sm,clocks.max.sm,"
+                       "temperature.gpu")
+    finite(out, "sgd")
+    if out["steps"] != TRAIN_STEPS or len(out["metrics"]) != TRAIN_STEPS:
+        raise AssertionError(f"trained {out['steps']} steps, logged "
+                             f"{len(out['metrics'])}")
+    if not any(line.startswith("resumed from") for line in lines):
+        raise AssertionError("the timed run did not resume the warm-up's "
+                             "checkpoint")
+
+    # checkpoint: restored, saved again and restored equal; the export is
+    # the restored EMA; the reference .bin.gz is written
+    cfg = MC.get_config(MODEL)
+    model = TCMD.make_model(SIZE, MODEL, dev, SEED)
+    template = TS.init_train_state(dict(model.named_parameters()),
+                                   TS.make_optimizer(kind="sgd"))
+    latest = C.latest_checkpoint(str(ckpt))
+    state = C.restore_checkpoint(latest, template)
+    again = C.restore_checkpoint(C.save_checkpoint(
+        str(work / "ckpt2"), state, state.step), template)
+    total = TRAIN_WARMUP + TRAIN_STEPS
+    if state.step != total or state.opt_state["count"] != total:
+        raise AssertionError(f"restored step {state.step}, count "
+                             f"{state.opt_state['count']}, want {total}")
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return sorted(a) == sorted(b) and all(same(a[k], b[k])
+                                                  for k in a)
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return a == b
+    for f in ("params", "opt_state", "ema_params", "swa_params", "step"):
+        if not same(getattr(state, f), getattr(again, f)):
+            raise AssertionError(f"checkpoint round trip changed {f}")
+    exported = C.load_params(out["export"], state.params)
+    if not same(exported, state.ema_params):
+        raise AssertionError("the export is not the checkpoint's EMA")
+    for t in state.params.values():
+        if not torch.isfinite(t).all():
+            raise AssertionError("a trained parameter is not finite")
+    t0 = time.time()
+    bin_gz = Path(C.export_bin_gz(str(export), Path(out["export"]).name,
+                                  state.ema_params, cfg))
+    bin_s = time.time() - t0
+    with gzip.open(bin_gz, "rb") as f:
+        head = f.read(64).split(b"\n")
+    if head[0].decode() != Path(out["export"]).name or head[1] != b"15":
+        raise AssertionError(f"bad .bin.gz header {head[:2]}")
+
+    t0 = time.time()
+    muon = TCMD.run_training(str(data), str(work / "ckpt_muon"), None,
+                             steps=MUON_STEPS, optimizer_kind="normuon",
+                             **common)
+    muon_s = time.time() - t0
+    finite(muon, "normuon")
+
+    t0 = time.time()
+    check = check_step_card_vs_cpu(shard, dev)
+    check_s = time.time() - t0
+
+    steps = out["steps"]
+    ms = {k: timings[k] / steps * 1e3
+          for k in ("data_s", "h2d_s", "fwd_bwd_s", "opt_s")}
+    step_ms = sum(ms.values())
+    flops = 3.0 * forward_flops(model, SIZE, TRAIN_BATCH, dev)
+    res = {"steps": steps, "batch": TRAIN_BATCH, "model": MODEL,
+           "ms_per_step": ms, "step_ms": step_ms,
+           "rows_per_s_steps": TRAIN_BATCH / step_ms * 1e3,
+           "rows_per_s_run": out["rows_per_s"],
+           "peak_mem_bytes": peak, "train_flops_per_step": flops,
+           "fwd_bwd_tflops": flops / (ms["fwd_bwd_s"] / 1e3) / 1e12,
+           "f32_peak_share": flops / (ms["fwd_bwd_s"] / 1e3)
+           / F32_FLOPS_PER_S,
+           "first_loss": out["first_loss"], "final_loss": out["final_loss"],
+           "muon_losses": [m["loss"] for m in muon["metrics"]],
+           "warmup_s": warm_s, "run_s": run_s, "muon_s": muon_s,
+           "bin_gz_s": bin_s,
+           "bin_gz_bytes": bin_gz.stat().st_size,
+           "card_vs_cpu": check, "card_vs_cpu_s": check_s,
+           "tf32": {"matmul": tf32[0], "cudnn": tf32[1]}, "smi": clocks}
+    log(f"phase train: {steps} steps resumed at step {TRAIN_WARMUP}; ms per "
+        f"step: data {ms['data_s']:.2f}, host-to-device {ms['h2d_s']:.2f}, "
+        f"forward+backward {ms['fwd_bwd_s']:.2f}, optimizer+EMA "
+        f"{ms['opt_s']:.2f} (sum {step_ms:.2f}); "
+        f"{res['rows_per_s_steps']:.1f} rows/s over the steps, "
+        f"{out['rows_per_s']:.1f} over the run (checkpoint and export "
+        f"included); peak device memory {peak / 2**30:.2f} GiB")
+    log(f"phase train: {flops / 1e12:.3f} TFLOP per step (3x the forward's "
+        f"{flops / 3e12:.3f}, reckoned from the shapes); forward+backward "
+        f"at {res['fwd_bwd_tflops']:.2f} TFLOP/s, "
+        f"{100 * res['f32_peak_share']:.1f}% of the 67 TFLOP/s float32 "
+        f"peak; loss {out['first_loss']:.4f} -> {out['final_loss']:.4f}; "
+        f"normuon losses {res['muon_losses']}")
+    log(f"phase train: checkpoint round trip equal, export equal to the "
+        f"EMA, {bin_gz.name} {res['bin_gz_bytes']} B in {bin_s:.1f} s; "
+        f"card vs CPU ({CHECK_MODEL}, batch {CHECK_BATCH}): loss terms "
+        f"within {check['loss_max_rel_err']:.2e} relative (limit "
+        f"{CHECK_LOSS_RTOL}), updates within "
+        f"{check['update_max_rel_err']:.2e} of their tensor's largest "
+        f"(limit {CHECK_UPDATE_REL}; worst error "
+        f"{check['update_worst_of_limit']:.3f} of its limit)")
+    log(f"phase train card: {clocks} (name, power limit, draw, SM clock, "
+        f"max SM clock, temperature)")
+    log("train json " + json.dumps(res))
+    return res
+
+
+def run_models_dir_phase(work: Path, dev) -> dict:
+    """Phase 8: selfplay from phase 7's export through run_selfplay's
+    -models-dir; the output is named after the newest export."""
+    import numpy as np
+
+    from katago_torch.cli.selfplay_cmd import run_selfplay
+    from katago_torch.train import checkpoint as C
+
+    latest = C.find_latest_model(str(work / "export"))
+    out_dir = work / "selfplay_from_export"
+    lines = []
+    t0 = time.time()
+    totals = run_selfplay(str(out_dir), str(work / "export"), size=SIZE,
+                          games_per_batch=GAMES, visits=SP_VISITS,
+                          max_batches=1, config_name=MODEL,
+                          data_quality="test", device=dev,
+                          dtype=torch.bfloat16, max_moves=P8_MOVES,
+                          log=lines.append)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    shard = out_dir / Path(latest).name / "tdata" / \
+        f"batch000000_0_s{SIZE}.npz"
+    with np.load(shard) as z:
+        rows = z["globalInputNC"].shape[0]
+    if rows == 0 or rows != totals["rows"]:
+        raise AssertionError(f"selfplay from the export wrote {rows} rows, "
+                             f"reported {totals['rows']}")
+    log(f"phase selfplay from export: model {Path(latest).name}, {GAMES} "
+        f"games x {P8_MOVES} moves at {SP_VISITS} visits in {dt:.2f} s, "
+        f"{rows} rows in {shard.relative_to(work)}")
+    return {"seconds": dt, "rows": rows, "model": Path(latest).name}
 
 
 def main() -> int:
@@ -542,11 +835,17 @@ def main() -> int:
     if not bool(H.legal_moves(roots, SIZE).gather(1, moves[:, None]).all()):
         raise AssertionError("a chosen move is illegal")
 
-    # ---- 6. selfplay ----
+    # ---- 6-8. selfplay, the trainer on its shard, selfplay from the export
     check_exact_ladders(dev)
-    sp_out = run_selfplay_phase(model, gen, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        sp_out = run_selfplay_phase(model, gen, dev, work)
+        del model, driver, res
+        torch.cuda.empty_cache()
+        run_train_phase(work, dev)
+        run_models_dir_phase(work, dev)
 
-    # ---- 7. report ----
+    # ---- 9. report ----
     log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} (search 1), "
         f"{sp_out['playouts_per_s']:.1f} (selfplay, {SP_VISITS} visits, "
         f"tree reuse)")

@@ -1,15 +1,20 @@
 """selfplay command — training-data generator (reference
 cpp/command/selfplay.cpp); port of katago_tpu/cli/selfplay_cmd.py.
 
-Plays batched MCTS games and writes reference-schema npz shards + sgf
-records into the output dir structure the reference loop uses:
-outdir/<model>/{tdata,sgfs}/. The net has seeded random weights
-(models/weights.py): the port has no checkpoint format yet, so
--models-dir and -switch-nets raise NotImplementedError.
+Polls a models dir for the newest export of the trainer
+(train/checkpoint.py::find_latest_model, selfplay.cpp:140-151
+semantics), plays batched MCTS games, and writes reference-schema npz
+shards + sgf records per model into the output dir structure the
+reference loop uses: outdir/<model>/{tdata,sgfs}/. Without -models-dir
+(or with an empty one) the net has seeded random weights
+(models/weights.py) and the model is named "random-init". -switch-nets
+polls the models dir every 16 moves and lets a newer export take over
+the rest of the batch's games.
 
 Usage: python -m katago_torch.cli.selfplay_cmd -output-dir D
-         [-device cpu] [-dtype float32] [-size 9] [-games-per-batch 32]
-         [-visits 64] [-max-batches N] [-config b2c16]
+         [-models-dir M [-switch-nets]] [-device cpu] [-dtype float32]
+         [-size 9] [-games-per-batch 32] [-visits 64] [-max-batches N]
+         [-config b2c16]
 
 Runs on CUDA unless `-device cpu` is given; with no CUDA device and no
 -device it raises.
@@ -35,13 +40,11 @@ from katago_torch.search.params import SearchParams
 from katago_torch.selfplay import gameinit as GI
 from katago_torch.selfplay.loop import play_games
 from katago_torch.selfplay.playsettings import PlaySettings
+from katago_torch.train import checkpoint as C
 from katago_torch.utils.signals import GracefulShutdown
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
-NO_CHECKPOINTS = ("the port has no checkpoint format until the trainer is "
-                  "ported (ROADMAP M8); selfplay runs on seeded random "
-                  "weights")
 
 
 def make_model(size: int, config_name: str, dtype, device,
@@ -57,13 +60,18 @@ def run_selfplay(output_dir: str, models_dir: str | None, *, size: int,
                  seed: int = 0, data_quality: str = "selfplay",
                  game_init=None, switch_nets: bool = False,
                  ladder_mode: str = "chase", device=None,
-                 dtype=torch.float32, log=print) -> dict:
-    if models_dir or switch_nets:
-        raise NotImplementedError(f"-models-dir / -switch-nets: "
-                                  f"{NO_CHECKPOINTS}")
+                 dtype=torch.float32, max_moves: int | None = None,
+                 log=print) -> dict:
+    """max_moves: cut every game after this many moves (default: the
+    play_games default, about 1.6 moves per point)."""
     dev = resolve_device(device)
     model = make_model(size, config_name, dtype, dev)
     model_name = "random-init"
+    if models_dir:
+        latest = C.find_latest_model(models_dir)
+        if latest:
+            model.load_state_dict(C.load_params(latest, model.state_dict()))
+            model_name = os.path.basename(latest)
     log(f"selfplay: model={model_name} size={size} games/batch="
         f"{games_per_batch} visits={visits} device={dev}")
 
@@ -88,6 +96,18 @@ def run_selfplay(output_dir: str, models_dir: str | None, *, size: int,
             m.load_state_dict(model.state_dict())
             models_by_size[s] = m.to(dev).eval()
         return models_by_size[s]
+
+    params_provider = None
+    if switch_nets and models_dir:
+        current = {"name": model_name}
+
+        def params_provider():
+            latest = C.find_latest_model(models_dir)
+            if latest and os.path.basename(latest) != current["name"]:
+                current["name"] = os.path.basename(latest)
+                log(f"  switching to net {current['name']} mid-game")
+                return C.load_params(latest, model.state_dict())
+            return None
 
     with GracefulShutdown(log) as stop:
         for batch_i in range(max_batches):
@@ -119,7 +139,8 @@ def run_selfplay(output_dir: str, models_dir: str | None, *, size: int,
                     visits=visits, rules=rules, search_params=sp, gen=gen,
                     device=dev, play_settings=ps, game_rules=grules,
                     num_handicap=nh, compensate_komi=comp, early_fork=fork,
-                    start_samples=starts, ladder_mode=ladder_mode)
+                    start_samples=starts, ladder_mode=ladder_mode,
+                    max_moves=max_moves, params_provider=params_provider)
                 arrays = data.to_npz_arrays(
                     bsize, stats["white_minus_black"],
                     komi_white=stats.get("komi_white"))
@@ -177,7 +198,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-output-dir", required=True)
     ap.add_argument("-models-dir", default=None,
-                    help=f"not supported: {NO_CHECKPOINTS}")
+                    help="directory of the trainer's exports; the newest "
+                         "is loaded")
     ap.add_argument("-size", type=int, default=9)
     ap.add_argument("-games-per-batch", type=int, default=32)
     ap.add_argument("-visits", type=int, default=64)
@@ -199,7 +221,8 @@ def main(argv=None):
                          "keys (bSizes/bSizeRelProbs/koRules/scoringRules/"
                          "taxRules/komiStdev/handicapProb/...)")
     ap.add_argument("-switch-nets", action="store_true",
-                    help=f"not supported: {NO_CHECKPOINTS}")
+                    help="poll -models-dir every 16 moves and switch to a "
+                         "newer export mid-game")
     ap.add_argument("-ladder-mode", default="chase",
                     choices=["chase", "exact"],
                     help="in-search leaf ladder featurization (per-move "

@@ -1,8 +1,8 @@
-"""Training-data npz writer — reference schema interop.
+"""Training-data npz writer/reader — reference schema interop.
 
-The port's own copy of the writer half of
-katago_tpu/dataio/trainingwrite.py; the reader (decode_rows / read_npz)
-comes with the trainer.
+The port's own copy of katago_tpu/dataio/trainingwrite.py: the writer
+(pack_rows / write_npz) for selfplay and the reader (decode_rows /
+read_npz) for the trainer.
 
 Writes selfplay rows in the exact array layout of the reference's
 TrainingDataWriter (cpp/dataio/trainingwrite.h:183-290 — channel map cited
@@ -215,3 +215,34 @@ def pack_rows(spatial: np.ndarray, global_in: np.ndarray,
 
 def write_npz(path: str, arrays: dict[str, np.ndarray]):
     np.savez_compressed(path, **arrays)
+
+
+def decode_rows(arrays: dict[str, np.ndarray], size: int
+                ) -> dict[str, np.ndarray]:
+    """Schema arrays (as stored on disk) -> the learner's float batch dict:
+    binary planes unpacked to float NCHW, everything else float-cast raw
+    (matching data_processing_pytorch.py:28-299 — per-channel scaling like
+    scoreDistrN/100 or valueTargets C4/120 happens inside the loss)."""
+    from katago_torch.dataio import native
+    area = size * size
+    packed = arrays["binaryInputNCHWPacked"]
+    n = packed.shape[0]
+    binary = native.unpack_bits_nchw(packed, area).reshape(n, 22, size, size)
+    return {
+        "binaryInputNCHW": binary,
+        "globalInputNC": arrays["globalInputNC"].astype(np.float32),
+        "policyTargetsNCMove":
+            arrays["policyTargetsNCMove"].astype(np.float32),
+        "globalTargetsNC": arrays["globalTargetsNC"].astype(np.float32),
+        "scoreDistrN": arrays["scoreDistrN"].astype(np.float32),
+        "valueTargetsNCHW": arrays["valueTargetsNCHW"].astype(np.float32),
+        "qValueTargetsNCMove":
+            arrays["qValueTargetsNCMove"].astype(np.float32),
+    }
+
+
+def read_npz(path: str, size: int) -> dict[str, np.ndarray]:
+    """Read a reference-schema npz into the learner's batch dict."""
+    with np.load(path) as z:
+        return decode_rows({k: z[k] for k in z.files if k != "metadataInputNC"
+                            }, size)

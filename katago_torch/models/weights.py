@@ -4,7 +4,8 @@ parameter tree, and a seeded initializer for runs without JAX.
 `from_flax_params` maps a Flax tree (given as numpy arrays) onto the
 state_dict of models.model.KataGoModel: module names match the Flax
 auto-names, conv kernels go HWIO -> OIHW and dense kernels [in, out] ->
-[out, in]. `init_weights` mirrors katago_init (model.py:56 of the JAX
+[out, in]. `to_flax_params` is its inverse (the exporter and the tests
+use it). `init_weights` mirrors katago_init (model.py:56 of the JAX
 package): truncated normal with std = scale * gain / sqrt(fan_in) /
 0.8796 at +-2 std, zeros where scale is 0, biases and betas zero, gammas
 one — drawn from a torch.Generator, so the numbers differ from JAX's.
@@ -39,6 +40,24 @@ def from_flax_params(params_np: dict) -> dict:
             out[prefix + k] = torch.from_numpy(np.ascontiguousarray(a).copy())
 
     walk(params_np, "")
+    return out
+
+
+def to_flax_params(state_dict: dict) -> dict:
+    """state_dict -> the Flax params tree (the dict under "params") with
+    numpy float32 leaves: OIHW -> HWIO, [out, in] -> [in, out]."""
+    out: dict = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        a = t.detach().float().cpu().numpy()
+        if leaf == "kernel" and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        elif leaf == "kernel" and a.ndim == 2:
+            a = a.T
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
     return out
 
 

@@ -14,12 +14,12 @@ Everything runs on the caller's device (CUDA unless the caller passes
 device="cpu"); random draws come from the caller's torch.Generator, and
 the host-side draws (cheap/full mixing, opening lengths, komi) from a
 numpy generator seeded from it. Not ported: the JAX package's `mesh`
-(the game axis sharded over devices) and `params_provider` (mid-game net
-switching, which needs the trainer's checkpoints).
+(the game axis sharded over devices).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 
@@ -278,6 +278,7 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
                resign_threshold: float = 0.0,
                resign_consec_turns: int = 3,
                ladder_mode: str = "chase",
+               params_provider=None,
                mesh=None,
                timings: dict | None = None
                ) -> tuple[GameBatchData | None, dict]:
@@ -306,6 +307,12 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
 
     ladder_mode: the in-search leaf ladder solver; recorded rows always
     use the exact solver.
+
+    params_provider: optional callable () -> state_dict or None, polled
+    every 16 moves; a state_dict takes over the rest of every live game
+    (mid-game net switching, selfplay.cpp:336-343). It is loaded into a
+    copy of `model`: the caller's module keeps its weights, as the JAX
+    package's caller keeps its params.
 
     timings: optional dict that collects, synchronising the device at
     each boundary, the seconds spent in search, move choice, row
@@ -396,10 +403,17 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
     ladder_stats = None if timings is None else timings.setdefault(
         "ladder", {})
     t = clock("setup_s", time.perf_counter())
-    for _ in range(max_moves):
+    for move_i in range(max_moves):
         done = games.pos.game_over.cpu().numpy() | (resigned_by != 0)
         if done.all():
             break
+        if params_provider is not None and move_i % 16 == 0:
+            # mid-game net switching (selfplay.cpp:336-343): a freshly
+            # exported model takes over the rest of every live game
+            new_params = params_provider()
+            if new_params is not None:
+                model = copy.deepcopy(model)
+                model.load_state_dict(new_params)
         # cheap/full decision per move (cheapSearchProb)
         is_full = host_rng.random() >= ps.cheap_search_prob
         move_visits = visits if is_full else cheap_visits

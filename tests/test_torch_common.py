@@ -13,6 +13,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from katago_tpu.game import history as JH
@@ -21,6 +22,17 @@ from katago_torch.game import history as TH
 from katago_torch.game import rules as TR
 
 CPU = "cpu"
+
+
+@pytest.fixture
+def torch_one_thread():
+    """One intra-op thread for torch: the port's test nets and boards are
+    tiny, and on a shared CPU (or beside other test workers) more threads
+    only contend. Restores the count afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 RULESETS = {
     "tromp_taylor": (JR.Rules.tromp_taylorish(), TR.Rules.tromp_taylorish()),
@@ -231,19 +243,97 @@ def load_ref(name: str):
     return arrays, json.loads(str(arrays.pop("meta")))
 
 
+def flax_tree(arrays: dict, prefix: str) -> dict:
+    """The nested Flax params tree of a fixture's flat "prefix/a/b/kernel"
+    arrays (a "params" level under the prefix is skipped)."""
+    tree: dict = {}
+    for key, value in arrays.items():
+        parts = key.split("/")
+        if parts[0] != prefix:
+            continue
+        *path, leaf = parts[2:] if parts[1] == "params" else parts[1:]
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def flat_flax(state_dict: dict, prefix: str) -> dict:
+    """A port state_dict in the fixtures' flat Flax form:
+    {"prefix/a/b/kernel": numpy array in Flax layout}."""
+    from katago_torch.models import weights as TW
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + [k])
+            else:
+                out["/".join([prefix] + path + [k])] = v
+    walk(TW.to_flax_params(state_dict), [])
+    return out
+
+
 def ref_model(size: int, seed: int = 3, dtype=torch.float32):
     """The port's b1c6 net carrying the fixture's seeded Flax weights."""
     from katago_torch.models import config as TC
     from katago_torch.models import model as TM
     from katago_torch.models import weights as TW
     arrays, _ = load_ref(f"weights_b1c6_s{seed}")
-    tree: dict = {}
-    for key, value in arrays.items():
-        *path, leaf = key.split("/")[1:]
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = value
     model = TM.KataGoModel(TC.get_config("b1c6"), pos_len=size, dtype=dtype)
-    model.load_state_dict(TW.from_flax_params(tree))
+    model.load_state_dict(TW.from_flax_params(flax_tree(arrays, "w")))
     return model.eval()
+
+
+def random_rows(size: int, n: int, seed: int) -> dict:
+    """n seeded random training rows at size x size in the reference npz
+    schema (through the port's pack_rows, which is held against the JAX
+    package's): every target and weight channel populated, full-board
+    masks, some rows without a next-move policy target."""
+    from katago_torch.dataio import trainingwrite as TTW
+    rng = np.random.default_rng(seed)
+    area = size * size
+    spatial = (rng.random((n, size, size, 22)) < 0.2).astype(np.float32)
+    spatial[..., 0] = 1.0
+    next_pol = rng.dirichlet(np.ones(area + 1), n).astype(np.float32)
+    next_pol[rng.random(n) < 0.25] = 0.0
+    td = np.zeros((n, 5, 4), np.float32)
+    td[:, :, :3] = rng.dirichlet(np.ones(3), (n, 5))
+    td[:, :, 3] = rng.normal(0, 6, (n, 5))
+    return TTW.pack_rows(
+        spatial=spatial,
+        global_in=rng.uniform(-1, 1, (n, 19)).astype(np.float32),
+        policy_target=rng.dirichlet(np.ones(area + 1) * 0.3, n).astype(
+            np.float32),
+        next_policy_target=next_pol,
+        value_target=rng.dirichlet(np.ones(3), n).astype(np.float32),
+        td_targets=td,
+        score_target=rng.normal(0, 6, n).astype(np.float32),
+        lead_target=rng.normal(0, 6, n).astype(np.float32),
+        ownership_target=rng.integers(-1, 2, (n, area)).astype(np.float32),
+        self_komi=np.full(n, 7.5, np.float32),
+        turn_idx=rng.integers(0, 40, n).astype(np.float32),
+        visits=np.full(n, 32.0, np.float32), size=size,
+        variance_time=rng.uniform(0, 5, n).astype(np.float32),
+        futurepos=rng.integers(-1, 2, (n, 2, area)).astype(np.float32),
+        seki_diff=rng.integers(-1, 2, (n, area)).astype(np.float32),
+        scoring=rng.uniform(-1, 1, (n, area)).astype(np.float32),
+        q_winloss=rng.uniform(-1, 1, (n, area + 1)).astype(np.float32),
+        q_score=rng.normal(0, 0.3, (n, area + 1)).astype(np.float32),
+        q_visits=rng.integers(0, 12, (n, area + 1)).astype(np.int32),
+        game_hash=rng.integers(0, 2 ** 63, n, dtype=np.uint64),
+        row_weight=rng.uniform(0.5, 1.0, n).astype(np.float32))
+
+
+def write_shards(data_dir, size: int, rows_per_file, seed: int) -> list:
+    """One npz shard per entry of rows_per_file, seeded from seed; returns
+    the paths."""
+    import os
+    os.makedirs(data_dir, exist_ok=True)
+    paths = []
+    for i, n in enumerate(rows_per_file):
+        path = os.path.join(str(data_dir), f"shard{i:03d}.npz")
+        np.savez_compressed(path, **random_rows(size, n, seed * 1000 + i))
+        paths.append(path)
+    return paths

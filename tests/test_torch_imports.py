@@ -1,5 +1,5 @@
-"""Boundaries of the PyTorch port: katago_torch imports no JAX, no Flax and
-nothing of katago_tpu; its entry points refuse to fall back to the CPU;
+"""Boundaries of the PyTorch port: katago_torch imports no JAX, no Flax,
+no optax or orbax and nothing of katago_tpu; its entry points refuse to fall back to the CPU;
 kernel wrappers take the plain version only for CPU tensors; built kernel
 libraries are never tracked."""
 
@@ -13,7 +13,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "katago_torch"
-FORBIDDEN = ("jax", "flax", "katago_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "katago_tpu")
 
 
 def _modules():

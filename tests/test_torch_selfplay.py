@@ -351,9 +351,17 @@ def test_selfplay_refusals(case, tmp_path, monkeypatch):
             SC.run_selfplay(str(tmp_path), None, size=5, games_per_batch=2,
                             visits=2, max_batches=1, config_name="b1c6")
     elif case == "models_dir":
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            SC.main(["-device", "cpu", "-output-dir", str(tmp_path),
-                     "-models-dir", str(tmp_path)])
+        # an export of another net: refused before any game is played
+        from katago_torch.models import config as TC
+        from katago_torch.models import model as TM
+        from katago_torch.train import checkpoint as TCK
+        other = TM.KataGoModel(TC.get_config("b2c16"), 5, torch.float32)
+        TCK.export_params(str(tmp_path / "models"), "b2c16-s1",
+                          other.state_dict())
+        with pytest.raises(ValueError, match="keys differ"):
+            SC.main(["-device", "cpu", "-size", "5", "-config", "b1c6",
+                     "-output-dir", str(tmp_path / "out"),
+                     "-models-dir", str(tmp_path / "models")])
     else:
         with pytest.raises(NotImplementedError, match="mesh"):
             LOOP.play_games(C.ref_model(5), size=5, num_games=2, visits=2,

@@ -31,6 +31,19 @@ Fixtures:
                 _place_start_positions on 9x9 batches
   npz_schema    (JSON) keys, dtypes and per-row shapes of the training
                 npz at 5x5, 7x7 and 19x19
+  train_losses  compute_losses of the b1c6 net (weights seed 3) on one
+                seeded 5x5 batch of 16 rows (is_training True and False,
+                the seki EMA in and out), the gradients of the total loss
+                by every parameter, and two steps of each optimizer
+                (sgd, muon, normuon, polar) from those gradients: params
+                after each step and the optimizer state after the second
+  train         run_training at 5x5, b1c6, batch 16, 6 SGD steps with
+                SWA on seeded random shards: the initial params, every
+                metrics.json line, the final params, EMA and SWA
+  train_muon    the same for 3 steps of -optimizer normuon
+  train_resume  3 SGD steps with an -lr-schedule, then a resume for 3
+                more: both runs' metrics lines, the final state, and the
+                optimizer count the checkpoint restores
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -55,6 +69,7 @@ import torch  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
+from katago_tpu.cli import train_cmd as JTRAIN  # noqa: E402
 from katago_tpu.dataio import trainingwrite as JTW  # noqa: E402
 from katago_tpu.dataio.poses import PositionSample  # noqa: E402
 from katago_tpu.game import history as JH  # noqa: E402
@@ -67,6 +82,11 @@ from katago_tpu.search.driver import SearchDriver as JDriver  # noqa: E402
 from katago_tpu.search.params import SearchParams as JParams  # noqa: E402
 from katago_tpu.selfplay import loop as JLOOP  # noqa: E402
 from katago_tpu.selfplay.playsettings import PlaySettings  # noqa: E402
+from katago_tpu.train import checkpoint as JCK  # noqa: E402
+from katago_tpu.train import losses as JLOSS  # noqa: E402
+from katago_tpu.train import muon as JMUON  # noqa: E402
+from katago_tpu.train import schedules as JSCH  # noqa: E402
+from katago_tpu.train import train_step as JSTEP  # noqa: E402
 from katago_torch.ops import cases as CASES  # noqa: E402
 
 from tests import test_torch_common as C  # noqa: E402
@@ -457,12 +477,234 @@ def make_schema():
     print("wrote npz_schema.json", flush=True)
 
 
+# ---- trainer ----
+
+TRAIN_SIZE = 5
+TRAIN_BATCH = 16
+LOSS_ROWS_SEED = 7          # tests.test_torch_common.random_rows seed
+SEKI_IN = (0.3, 2.0)        # the seki EMA (sum, weight) passed in
+OPT_LR = 0.01
+OPT_SCHEDULE = "(0,1.0),(16,0.5)"   # the second step runs at half the lr
+OPT_GRAD_SCALES = (1.0, 0.5)        # step k uses the gradients times this
+OPT_KINDS = ("sgd", "muon", "normuon", "polar")
+TRAIN_SHARDS = [40, 30, 25]         # rows per shard
+TRAIN_DATA_SEED = 1                 # tests.test_torch_common.write_shards
+TRAIN_RUN = {"size": TRAIN_SIZE, "config_name": "b1c6",
+             "batch_size": TRAIN_BATCH, "lr": 0.01, "seed": 0}
+RESUME_SCHEDULE = "(0,1.0),(56,0.5),(100,0.25)"
+NS_SHAPES = [(864, 96), (96, 96), (198, 6), (12, 8)]   # seeded matrices
+
+
+class ns_float32:
+    """Inside, the JAX package's Muon orthogonalizes in float32 instead
+    of bfloat16 (its module's jnp.bfloat16 reads float32), as the port
+    does with muon.NS_DTYPE = float32: the rest of the update can then be
+    compared at float32 precision."""
+
+    def __enter__(self):
+        import types
+        proxy = types.SimpleNamespace(**{k: getattr(jnp, k) for k in dir(jnp)
+                                         if not k.startswith("__")})
+        proxy.bfloat16 = jnp.float32
+        self.saved, JMUON.jnp = JMUON.jnp, proxy
+
+    def __exit__(self, *exc):
+        JMUON.jnp = self.saved
+        return False
+
+
+def flat(tree, prefix: str) -> dict:
+    """A pytree's array leaves as {prefix/path: numpy array}."""
+    out = {}
+    for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        names = [str(getattr(k, "key", getattr(k, "name",
+                                               getattr(k, "idx", k))))
+                 for k in path]
+        out["/".join([prefix] + names)] = np.asarray(v)
+    return out
+
+
+def train_batch():
+    return JTW.decode_rows(C.random_rows(TRAIN_SIZE, TRAIN_BATCH,
+                                         LOSS_ROWS_SEED), TRAIN_SIZE)
+
+
+def _opt_state_arrays(kind: str, st) -> dict:
+    """The optimizer state of make_optimizer(kind) as flat arrays: the
+    SGD trace, or Muon's momentum / normuon_v and Adam's mu / nu, plus
+    the counts."""
+    if kind == "sgd":
+        trace, sched = st[2]
+        return {**flat(trace.trace, "trace"),
+                "count": np.asarray(sched.count)}
+    inner = st[1].inner_states
+    muon_state, _, muon_sched = inner["muon"].inner_state
+    adam_state, _, adam_sched = inner["adam"].inner_state
+    return {**flat(muon_state.momentum, "momentum"),
+            **flat(muon_state.normuon_v, "normuon_v"),
+            **flat(adam_state.mu, "mu"), **flat(adam_state.nu, "nu"),
+            "count": np.asarray(muon_sched.count),
+            "adam_count": np.asarray(adam_state.count),
+            "adam_sched_count": np.asarray(adam_sched.count)}
+
+
+def make_train_losses():
+    model = jax_model(TRAIN_SIZE)
+    params = jax_params(WEIGHT_SEED)
+    batch = {k: jnp.asarray(v) for k, v in train_batch().items()}
+    seki_in = JLOSS.SekiEma(sum=jnp.float32(SEKI_IN[0]),
+                            weight=jnp.float32(SEKI_IN[1]))
+
+    def loss(p, is_training):
+        raw = model.apply(p, batch["binaryInputNCHW"].transpose(0, 2, 3, 1),
+                          batch["globalInputNC"])
+        return JLOSS.compute_losses(raw, batch, seki_ema=seki_in,
+                                    is_training=is_training)
+
+    arrays = {}
+    for train in (True, False):
+        _, metrics, ema = jax.jit(lambda p: loss(p, train))(params)
+        tag = "train" if train else "eval"
+        arrays.update({f"m_{tag}/{k}": np.asarray(v)
+                       for k, v in metrics.items()})
+        arrays[f"seki_{tag}"] = np.asarray([ema.sum, ema.weight])
+    grads = jax.jit(jax.grad(lambda p: loss(p, True)[0]))(params)
+    arrays.update(flat(grads["params"], "grad"))
+    import contextlib
+
+    import optax
+    runs = [(k, k, contextlib.nullcontext) for k in OPT_KINDS] + \
+        [(k, f"{k}_f32", ns_float32) for k in OPT_KINDS if k != "sgd"]
+    for kind, tag, ctx in runs:
+        sched = JSCH.make_lr_schedule(OPT_LR, TRAIN_BATCH,
+                                      lr_schedule_str=OPT_SCHEDULE)
+        opt = JSTEP.make_optimizer(lr=sched, kind=kind)
+        st = opt.init(params)
+        p = params
+        with ctx():
+            for i, scale in enumerate(OPT_GRAD_SCALES):
+                g = jax.tree.map(lambda x: x * scale, grads)
+                upd, st = jax.jit(opt.update)(g, st, p)
+                p = optax.apply_updates(p, upd)
+                arrays.update(flat(p["params"], f"{tag}/p{i}"))
+        arrays.update({f"{tag}/state/{k}": v
+                       for k, v in _opt_state_arrays(kind, st).items()})
+    rng = np.random.default_rng(LOSS_ROWS_SEED)
+    for shape in NS_SHAPES:
+        g = rng.standard_normal(shape).astype(np.float32)
+        name = f"{shape[0]}x{shape[1]}"
+        arrays[f"ns_in/{name}"] = g
+        arrays[f"ns5/{name}"] = np.asarray(
+            JMUON.zeropower_newtonschulz5(jnp.asarray(g)))
+        arrays[f"polar/{name}"] = np.asarray(
+            JMUON.zeropower_polar_express(jnp.asarray(g)))
+    save("train_losses", arrays, {
+        "config": "b1c6", "weights": f"weights_b1c6_s{WEIGHT_SEED}",
+        "size": TRAIN_SIZE, "batch": TRAIN_BATCH,
+        "rows": f"tests.test_torch_common.random_rows(size, batch, "
+                f"{LOSS_ROWS_SEED}) through decode_rows",
+        "seki_in": SEKI_IN, "lr": OPT_LR, "lr_schedule": OPT_SCHEDULE,
+        "grad_scales": OPT_GRAD_SCALES, "kinds": OPT_KINDS,
+        "f32": "KIND_f32/*: the Muon kinds with Newton-Schulz in float32 "
+               "(ns_float32)",
+        "ns_shapes": NS_SHAPES,
+        "ns_in": f"standard normal, numpy default_rng({LOSS_ROWS_SEED}), "
+                 f"in order"})
+
+
+def _jax_run(data_dir: str, ckpt_dir: str, steps: int, **kw):
+    """JAX run_training; returns (metrics lines, checkpoint metadata,
+    restored TrainState, the initial params)."""
+    model = JModel(JC.get_config("b1c6"), pos_len=TRAIN_SIZE,
+                   dtype=jnp.float32)
+    init = model.init(jax.random.PRNGKey(TRAIN_RUN["seed"]),
+                      jnp.zeros((1, TRAIN_SIZE, TRAIN_SIZE, 22)),
+                      jnp.zeros((1, 19)))
+    JTRAIN.run_training(data_dir, ckpt_dir, None, steps=steps, **TRAIN_RUN,
+                        **kw)
+    with open(os.path.join(ckpt_dir, "metrics.json")) as f:
+        lines = [json.loads(x) for x in f]
+    latest = JCK.latest_checkpoint(ckpt_dir)
+    sched = JSCH.make_lr_schedule(TRAIN_RUN["lr"], TRAIN_BATCH)
+    template = JSTEP.init_train_state(init, JSTEP.make_optimizer(
+        lr=sched, kind=kw.get("optimizer_kind", "sgd")))
+    state = JCK.restore_checkpoint(latest, template)
+    return lines, JCK.load_metadata(latest), state, init
+
+
+def _state_arrays(state) -> dict:
+    return {**flat(state.params["params"], "params"),
+            **flat(state.ema_params["params"], "ema"),
+            **flat(state.swa_params["params"], "swa"),
+            "seki": np.asarray([state.seki_ema.sum, state.seki_ema.weight])}
+
+
+def _make_run(name: str, steps: int, ns_dtype: str = "bfloat16", **kw):
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        C.write_shards(data, TRAIN_SIZE, TRAIN_SHARDS, TRAIN_DATA_SEED)
+        lines, meta, state, init = _jax_run(data, os.path.join(tmp, "ckpt"),
+                                            steps, **kw)
+    serve = {k: [os.path.basename(f) for f in v] for k, v in
+             meta["data_serve_state"].items() if k != "old_train_data_dirs"}
+    save(name, {**flat(init["params"], "init"), **_state_arrays(state)}, {
+        "run_training": dict(TRAIN_RUN, steps=steps, **kw),
+        "shards": TRAIN_SHARDS, "data_seed": TRAIN_DATA_SEED,
+        "metrics": lines, "serve_state": serve, "ns_dtype": ns_dtype,
+        "swa_sample_accum": meta["swa_sample_accum"],
+        "global_step": meta["global_step"],
+        "init": "flax model.init(PRNGKey(seed)), as the JAX run_training"})
+
+
+def make_train():
+    _make_run("train", 6, swa_period_samples=32, swa_scale=4.0)
+
+
+def make_train_muon():
+    """Newton-Schulz in float32 (ns_float32): bfloat16 rounding differs
+    between XLA and PyTorch and the iteration amplifies it."""
+    with ns_float32():
+        _make_run("train_muon", 3, optimizer_kind="normuon",
+                  ns_dtype="float32")
+
+
+def make_train_resume():
+    """3 SGD steps under RESUME_SCHEDULE, then a resume for 3 more. The
+    resumed run's schedule adds start_samples (3 steps x batch) to
+    count x batch, and the count it reads is the restored optimizer
+    count (3 at the first resumed step): samples 96, 112, 128 where 48,
+    64, 80 were trained."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        ckpt = os.path.join(tmp, "ckpt")
+        C.write_shards(data, TRAIN_SIZE, TRAIN_SHARDS, TRAIN_DATA_SEED)
+        lines1, meta1, state1, init = _jax_run(
+            data, ckpt, 3, lr_schedule=RESUME_SCHEDULE)
+        count = int(np.asarray(state1.opt_state[2][1].count))
+        lines2, meta2, state2, _ = _jax_run(
+            data, ckpt, 3, lr_schedule=RESUME_SCHEDULE)
+    sched = JSCH.make_lr_schedule(
+        TRAIN_RUN["lr"], TRAIN_BATCH, lr_schedule_str=RESUME_SCHEDULE,
+        start_samples=meta1["global_step"] * TRAIN_BATCH)
+    lrs = [float(sched(count + i)) for i in range(3)]
+    save("train_resume", {**flat(init["params"], "init"),
+                          **_state_arrays(state2)}, {
+        "run_training": dict(TRAIN_RUN, steps=3,
+                             lr_schedule=RESUME_SCHEDULE),
+        "shards": TRAIN_SHARDS, "data_seed": TRAIN_DATA_SEED,
+        "metrics_first": lines1, "metrics_resumed": lines2,
+        "restored_count": count, "resumed_lrs": lrs,
+        "global_step": meta2["global_step"]})
+
+
 MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "chase": make_chase, "ladder_exact": make_ladder_exact,
           "selfplay": make_selfplay, "resign": make_resign,
           "features": make_features,
           "handicap": make_handicap,
-          "npz_schema": make_schema}
+          "npz_schema": make_schema, "train_losses": make_train_losses,
+          "train": make_train, "train_muon": make_train_muon,
+          "train_resume": make_train_resume}
 
 
 def main() -> int:
