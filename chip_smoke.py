@@ -41,10 +41,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      run_selfplay(models_dir=...) at 19x19, 128 games, 32 visits, bf16,
      every move recorded, P8_MOVES moves: the output directory is named
      after the export and the shard holds rows;
-  9. report: the card's name and power limit, each kernel's time beside
-     its plain version's and its bound, launches per search and per
-     selfplay move, playouts/s, a `kernels` JSON line, and the result
-     line last.
+  9. the GTP engine (`run_gtp_phase`) on phase 7's b18c384nbt .bin.gz,
+     loaded with the port's desc.load_model: first DescNet against
+     KataGoModel on the exported EMA weights, float32, on 8 positions of
+     phase 6's shard (largest relative difference per output key within
+     DESC_RTOL); then a scripted 19x19 session through run_gtp (plays,
+     genmoves at GTP_VISITS, a streaming kata-analyze, undo, kata-raw-nn,
+     showboard, a genmove under time_settings 60 5 1 held to the
+     recommended time plus the lag buffer plus 2 s, a ponder turn, and a
+     second session through gtp.main with a config file that sets
+     rootNumSymmetriesToSample = 4): every response "=", every move
+     legal, both kernels launched, kata-raw-nn equal on the CPU within
+     DESC_RTOL; prints load, forward, playout and command times and the
+     launches per genmove; then both kernels timed at the one-game shape;
+ 10. the analysis engine (`run_analysis_phase`) on the same file:
+     run_protocol on 4 queries at ANALYSIS_VISITS (a 3-turn analyzeTurns
+     game, avoidMoves with every include flag, reportDuringSearchEvery,
+     and the first query again, which must hit the tree cache and run no
+     playouts): every final response has rootInfo and moveInfos and root
+     visits maxVisits; prints seconds per query;
+ 11. report: the card's name and power limit, each kernel's time beside
+     its plain version's and its bound, launches per search, per
+     selfplay move, per GTP session and per analysis session,
+     playouts/s, a `kernels` JSON line, and the result line last.
 
 A kernel's time ("device-only") is that of N launches captured in one
 CUDA graph and replayed, timed with CUDA events, over N: the device's
@@ -98,6 +117,10 @@ CHECK_BATCH = 16
 CHECK_LOSS_RTOL = 1e-4      # loss terms and gnorm, card vs CPU
 CHECK_UPDATE_REL = 1e-3     # updates, of each tensor's largest update
 P8_MOVES = 2
+GTP_VISITS = 64             # phase 9's genmoves (the time limit)
+ANALYSIS_VISITS = 32        # phase 10's queries
+DESC_POSITIONS = 8
+DESC_RTOL = 1e-3            # DescNet vs KataGoModel; card vs CPU raw nn
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
 REF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_ref"
 HBM_BYTES_PER_S = 3.35e12
@@ -593,6 +616,7 @@ def run_train_phase(work: Path, dev) -> dict:
     log(f"phase train card: {clocks} (name, power limit, draw, SM clock, "
         f"max SM clock, temperature)")
     log("train json " + json.dumps(res))
+    res["bin_gz"], res["export"] = str(bin_gz), out["export"]
     return res
 
 
@@ -627,6 +651,398 @@ def run_models_dir_phase(work: Path, dev) -> dict:
         f"games x {P8_MOVES} moves at {SP_VISITS} visits in {dt:.2f} s, "
         f"{rows} rows in {shard.relative_to(work)}")
     return {"seconds": dt, "rows": rows, "model": Path(latest).name}
+
+
+def check_desc_net(bin_gz: str, export: str, shard: Path, dev) -> dict:
+    """DescNet on the exported .bin.gz against KataGoModel on the EMA
+    weights that were exported, float32 with TF32 off, on DESC_POSITIONS
+    positions of phase 6's shard: the largest relative difference of
+    each output key (the policy's play and short-term optimistic
+    channels, the value, score and error channels, ownership)."""
+    from katago_torch.cli import train_cmd as TCMD
+    from katago_torch.dataio import trainingwrite as TW
+    from katago_torch.models import desc as D
+    from katago_torch.train import checkpoint as CK
+    from katago_torch.train import train_step as TS
+
+    t0 = time.time()
+    desc = D.load_model(bin_gz)
+    load_s = time.time() - t0
+    net = D.DescNet(desc).to(dev).eval()
+    model = TCMD.make_model(SIZE, MODEL, dev, SEED)
+    model.load_state_dict(CK.load_params(export, model.state_dict()))
+    model.eval()
+    rows = TW.read_npz(str(shard), SIZE)
+    sp = torch.from_numpy(rows["binaryInputNCHW"][:DESC_POSITIONS]).to(
+        dev).permute(0, 2, 3, 1).contiguous()
+    gl = torch.from_numpy(rows["globalInputNC"][:DESC_POSITIONS]).to(dev)
+    with torch.no_grad(), TS.float32_precision():
+        a = model(sp, gl)
+        b = net(sp, gl)
+    pairs = {"policy_logits": (a["policy_logits"][:, [0, 5]],
+                               b["policy_logits"]),
+             "value_logits": (a["value_logits"], b["value_logits"]),
+             "miscvalue": (a["miscvalue"][:, :4], b["miscvalue"][:, :4]),
+             "moremiscvalue": (a["moremiscvalue"][:, :2],
+                               b["moremiscvalue"][:, :2]),
+             "ownership_pretanh": (a["ownership_pretanh"],
+                                   b["ownership_pretanh"])}
+    rel = {}
+    for k, (x, y) in pairs.items():
+        x, y = x.float(), y.float()
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"DescNet output {k} is not finite")
+        rel[k] = float((x - y).abs().max() / x.abs().max().clamp(min=1e-30))
+    log(f"phase desc: load_model {desc.name} (version {desc.version}, "
+        f"{Path(bin_gz).stat().st_size} B) in {load_s:.2f} s; DescNet vs "
+        f"KataGoModel on {DESC_POSITIONS} shard positions, largest relative "
+        f"difference per key {json.dumps(rel)} (limit {DESC_RTOL})")
+    bad = {k: v for k, v in rel.items() if not v <= DESC_RTOL}
+    if bad:
+        raise AssertionError(f"DescNet differs from KataGoModel: {bad}")
+    return {"load_s": load_s, "rel_err": rel}
+
+
+class _Lines:
+    """GTP input whose reader can be made to wait: yields the script's
+    lines, sleeping `idle` seconds before a line "#idle"."""
+
+    def __init__(self, lines, idle=0.0):
+        self.lines, self.idle = lines, idle
+
+    def __iter__(self):
+        for line in self.lines:
+            if line == "#idle":
+                time.sleep(self.idle)
+                continue
+            yield line
+
+
+def _gtp(engine, lines, idle=0.0) -> list[str]:
+    """Run GTP lines through run_gtp; returns the response blocks."""
+    import io
+
+    from katago_torch.cli import gtp as G
+    out = io.StringIO()
+    G.run_gtp(engine, _Lines(lines, idle), out)
+    return [b for b in out.getvalue().split("\n\n") if b.strip()]
+
+
+def _stars() -> list[str]:
+    """The four 4-4 points (nearer the edge on small boards) as GTP
+    vertices, in the order Q16, D4, Q4, D16."""
+    from katago_torch.cli.gtp import loc_to_gtp
+    e = 3 if SIZE >= 13 else 2 if SIZE >= 7 else 1
+    lo, hi = e, SIZE - 1 - e
+    return [loc_to_gtp(y * SIZE + x, SIZE) for x, y in
+            ((hi, lo), (lo, hi), (hi, hi), (lo, lo))]
+
+
+def _raw_nn_numbers(text: str) -> list[float]:
+    out = []
+    for tok in text.split():
+        try:
+            out.append(float(tok))
+        except ValueError:
+            pass
+    return out
+
+
+def run_gtp_phase(bin_gz: str, dev, work: Path) -> dict:
+    """Phase 9 (see the module docstring)."""
+    import numpy as np
+
+    from katago_torch.cli import gtp as G
+    from katago_torch.game import history as H
+    from katago_torch.ops import chase as K1
+    from katago_torch.ops import labels as K2
+
+    def counts():
+        return {"chase_lanes": K1.launches, "connected_labels": K2.launches}
+
+    def ok(blocks, what):
+        bad = [b for b in blocks if not b.startswith("=")]
+        if bad:
+            raise AssertionError(f"GTP {what}: {bad}")
+
+    K1.reset_launches()
+    K2.reset_launches()
+    t0 = time.time()
+    eng = G.GTPEngine(model_path=bin_gz, size=SIZE, visits=GTP_VISITS,
+                      device=dev, seed=SEED)
+    engine_s = time.time() - t0
+    net = eng.net()
+    sp1 = torch.zeros((1, SIZE, SIZE, 22), device=dev)
+    sp1[..., 0] = 1.0
+    gl1 = torch.zeros((1, 19), device=dev)
+    with torch.no_grad():
+        fwd_ms = event_ms(lambda: net(sp1, gl1), 10)
+
+    s = _stars()
+    opening = [f"boardsize {SIZE}", "komi 7.5", "clear_board",
+               f"play b {s[0]}", f"play w {s[1]}", f"play b {s[2]}",
+               f"play w {s[3]}"]
+    ok(_gtp(eng, opening), "opening")
+    genmoves = []
+
+    def genmove(color):
+        before = H.legal_moves(H.replace_pos(eng.gs, to_move=eng._one(
+            1 if color == "b" else 2)), SIZE)[0].cpu().numpy()
+        c0 = counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        blocks = _gtp(eng, [f"genmove {color}"])
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        ok(blocks, f"genmove {color}")
+        loc = G.gtp_to_loc(blocks[0][2:], SIZE)
+        if not before[loc]:
+            raise AssertionError(f"genmove {color} chose illegal {loc}")
+        c1 = counts()
+        genmoves.append({"color": color, "seconds": dt,
+                         "move": blocks[0][2:],
+                         "visits": int(eng.last_search_result.root_visits[0]),
+                         "launches": {k: c1[k] - c0[k] for k in c1}})
+        return dt
+
+    genmove("b")
+    genmove("w")
+    t = time.time()
+    an = _gtp(eng, ["kata-analyze interval 0 rootInfo true pvVisits true"])
+    analyze_s = time.time() - t
+    ok(an, "kata-analyze")
+    info_lines = [ln for ln in an[0].splitlines() if ln.startswith("info")]
+    if len(info_lines) < 2:
+        raise AssertionError(f"kata-analyze streamed {len(info_lines)} "
+                             "info lines, want 2")
+    ok(_gtp(eng, ["undo"]), "undo")
+    t = time.time()
+    raw = _gtp(eng, ["kata-raw-nn 0"])
+    torch.cuda.synchronize()
+    raw_s = time.time() - t
+    ok(raw, "kata-raw-nn")
+    board = _gtp(eng, ["showboard"])
+    ok(board, "showboard")
+
+    # the same position's raw net on the CPU from the same file
+    cpu = G.GTPEngine(model_path=bin_gz, size=SIZE, visits=GTP_VISITS,
+                      device="cpu", seed=SEED)
+    for player, loc in eng.moves:
+        cpu.play(player, loc)
+    a, b = _raw_nn_numbers(raw[0][1:]), _raw_nn_numbers(cpu.raw_nn())
+    if len(a) != len(b) or len(a) != 3 + SIZE * SIZE + 1:
+        raise AssertionError(f"kata-raw-nn gave {len(a)} / {len(b)} numbers")
+    raw_err = float(np.abs(np.array(a) - np.array(b)).max())
+    if raw_err > DESC_RTOL:
+        raise AssertionError(f"kata-raw-nn card vs CPU differ by {raw_err}")
+    del cpu
+
+    # a genmove under a clock
+    ok(_gtp(eng, ["time_settings 60 5 1"]), "time_settings")
+    pla = eng.to_move()
+    st = eng.stones_np()
+    _, rec, _ = eng.time_controls[pla].get_time(
+        SIZE * SIZE, int(((st == 1) | (st == 2)).sum()),
+        lag_buffer=eng.lag_buffer)
+    clock_s = genmove("b" if pla == 1 else "w")
+    if clock_s > rec + eng.lag_buffer + 2.0:
+        raise AssertionError(f"genmove under time_settings took {clock_s:.2f}"
+                             f" s, recommended {rec:.2f} s")
+    ok(_gtp(eng, ["kata-time_settings none"]), "kata-time_settings")
+
+    # a ponder turn: genmove, 2 s idle while the ponder searches, stop
+    ok(_gtp(eng, ["kata-set-param ponderingEnabled true"]), "ponder on")
+    genmove("b" if eng.to_move() == 1 else "w")
+    c0 = counts()
+    blocks = _gtp(eng, ["#idle", "stop"], idle=2.0)
+    ok(blocks, "stop")
+    ponder_visits = int(eng._reuse_tree.visits[0, 0])
+    if ponder_visits <= 1:
+        raise AssertionError(f"the ponder's tree has {ponder_visits} visits")
+    c1 = counts()
+    ponder_launches = {k: c1[k] - c0[k] for k in c1}
+    ok(_gtp(eng, ["kata-set-param ponderingEnabled false", "final_score",
+                  "quit"]), "final")
+
+    # one playout at one game: a fresh visit-bounded search
+    drv = eng._get_driver()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t = time.time()
+    res = drv.search(eng.gs, gen, max_visits=GTP_VISITS)
+    torch.cuda.synchronize()
+    playout_ms = (time.time() - t) / (int(res.root_visits[0]) - 1) * 1e3
+
+    # a second session through main() with a config file
+    import io
+    cfg = work / "gtp.cfg"
+    cfg.write_text(f"maxVisits = {GTP_VISITS // 2}\n"
+                   "rootNumSymmetriesToSample = 4\nponderingEnabled = false\n"
+                   "numSearchThreads = 8\n")
+    out = io.StringIO()
+    t = time.time()
+    main_eng = G.main(["-model", bin_gz, "-config", str(cfg), "-boardsize",
+                       str(SIZE), "-device", dev.type], io.StringIO(f"play b {s[0]}\ngenmove w\n"
+                                               "quit\n"), out)
+    main_s = time.time() - t
+    blocks = [b for b in out.getvalue().split("\n\n") if b.strip()]
+    ok(blocks, "main session")
+    if main_eng.search_params.root_num_symmetries != 4 or \
+            main_eng._get_driver().root_num_symmetries != 4:
+        raise AssertionError("the config's rootNumSymmetriesToSample is not "
+                             "on the path")
+    launches = counts()
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched in phase 9")
+    gm = genmoves[:2]
+    per = {k: sum(g["launches"][k] for g in gm) / len(gm) for k in launches}
+    out = {"engine_s": engine_s, "forward_ms_batch1": fwd_ms,
+           "playout_ms": playout_ms, "genmoves": genmoves,
+           "genmove_s": [g["seconds"] for g in genmoves],
+           "analyze_s": analyze_s, "analyze_info_lines": len(info_lines),
+           "raw_nn_s": raw_s, "raw_nn_cpu_max_abs_err": raw_err,
+           "clock_genmove_s": clock_s, "clock_recommended_s": rec,
+           "ponder_root_visits": ponder_visits,
+           "ponder_launches": ponder_launches, "main_session_s": main_s,
+           "launches": launches, "launches_per_genmove": per}
+    log(f"phase gtp: {SIZE}x{SIZE} {MODEL} desc net, GTP_VISITS "
+        f"{GTP_VISITS}; "
+        f"forward at batch 1 {fwd_ms:.3f} ms; {playout_ms:.1f} ms per "
+        f"playout at one game; genmove s "
+        f"{[round(x, 3) for x in out['genmove_s']]}; kata-analyze "
+        f"{analyze_s:.2f} s ({len(info_lines)} info lines); kata-raw-nn "
+        f"{raw_s:.2f} s (card vs CPU {raw_err:.2e}); genmove under "
+        f"time_settings 60 5 1 {clock_s:.2f} s (recommended {rec:.2f} s); "
+        f"ponder tree {ponder_visits} visits after 2 s idle; main() session "
+        f"with rootNumSymmetriesToSample = 4 {main_s:.2f} s; launches "
+        f"{launches}, per genmove {per}")
+    log("gtp json " + json.dumps(out))
+    return out
+
+
+def one_game_kernel_times(dev) -> dict:
+    """Both kernels at the one-game shape of phases 9-10: K2 on one
+    board [1, NN], K1 on the lanes of one game's leaf batch."""
+    from katago_torch.game import ladder as LAD
+    from katago_torch.ops import cases as CASES
+    from katago_torch.ops import chase as K1
+    from katago_torch.ops import labels as K2
+    board = CASES.random_boards(1, SIZE, SEED + 1).to(dev)
+    st, ko = CASES.chase_boards(GAMES, SIZE, SEED + 2)
+    st, ko = st[:1].to(dev), ko[:1].to(dev)
+    steps = LAD.default_max_steps(SIZE)
+    args = LAD.chase_lane_inputs(st, LAD._chase_setup(st, SIZE, 16, ko), 16)
+    if not torch.equal(K2.connected_labels(board, SIZE),
+                       K2.connected_labels_plain(board, SIZE)):
+        raise AssertionError("K2 differs from its plain version at [1, NN]")
+    if not torch.equal(K1.chase_lanes(*args, size=SIZE, max_steps=steps),
+                       K1.chase_lanes_plain(*args, size=SIZE,
+                                            max_steps=steps)):
+        raise AssertionError("K1 differs from its plain version on one game")
+    out = {
+        "k2_ms": device_ms(lambda: K2.connected_labels(board, SIZE), 200),
+        "k2_plain_ms": event_ms(
+            lambda: K2.connected_labels_plain(board, SIZE), 10),
+        "k1_lanes": int(args[0].shape[0]),
+        "k1_active": int(args[6].sum()),
+        "k1_ms": device_ms(lambda: K1.chase_lanes(
+            *args, size=SIZE, max_steps=steps), 50),
+        "k1_plain_ms": event_ms(lambda: K1.chase_lanes_plain(
+            *args, size=SIZE, max_steps=steps), 3)}
+    log(f"one-game kernels: K2 [1, {SIZE * SIZE}] device-only "
+        f"{out['k2_ms']:.5f} ms vs plain {out['k2_plain_ms']:.4f} ms; K1 "
+        f"{out['k1_lanes']} lanes ({out['k1_active']} active) device-only "
+        f"{out['k1_ms']:.5f} ms vs plain {out['k1_plain_ms']:.4f} ms")
+    return out
+
+
+def run_analysis_phase(bin_gz: str, dev) -> dict:
+    """Phase 10 (see the module docstring)."""
+    import io
+
+    from katago_torch.cli import analysis as AN
+    from katago_torch.ops import chase as K1
+    from katago_torch.ops import labels as K2
+
+    s = _stars()
+    board = {"boardXSize": SIZE, "boardYSize": SIZE}
+    q1 = {"id": "turns", "moves": [["B", s[0]], ["W", s[1]], ["B", s[2]]],
+          "rules": "tromp-taylor", "komi": 7.5, "analyzeTurns": [1, 2, 3],
+          "maxVisits": ANALYSIS_VISITS, **board}
+    queries = [
+        q1,
+        {"id": "avoid", "moves": [["B", s[0]]], "maxVisits": ANALYSIS_VISITS,
+         "avoidMoves": [{"player": "W", "moves": s[1:], "untilDepth": 1}],
+         "includeOwnership": True, "includeMovesOwnership": True,
+         "includePVVisits": True, **board},
+        {"id": "stream", "moves": [["B", s[1]]], "maxVisits": ANALYSIS_VISITS,
+         "reportDuringSearchEvery": 0.001, **board},
+        dict(q1, id="again"),
+    ]
+
+    class Stamped(io.StringIO):
+        def __init__(self):
+            super().__init__()
+            self.stamps = []
+
+        def write(self, s):
+            self.stamps.append((time.time(), s))
+            return super().write(s)
+
+    K1.reset_launches()
+    K2.reset_launches()
+    eng = AN.AnalysisEngine(bin_gz, device=dev)
+    out = Stamped()
+    t0 = time.time()
+    AN.run_protocol(eng, io.StringIO("\n".join(json.dumps(q)
+                                               for q in queries) + "\n"), out)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    launches = {"chase_lanes": K1.launches, "connected_labels": K2.launches}
+    resp = [json.loads(x) for x in out.getvalue().splitlines()]
+    finals = [r for r in resp if not r.get("isDuringSearch")]
+    if len(finals) != 3 + 1 + 1 + 3:
+        raise AssertionError(f"{len(finals)} final responses: {finals}")
+    for r in finals:
+        if "rootInfo" not in r or not r.get("moveInfos"):
+            raise AssertionError(f"response without results: {r}")
+        if r["rootInfo"]["visits"] != ANALYSIS_VISITS:
+            raise AssertionError(f"root visits {r['rootInfo']['visits']}, "
+                                 f"want {ANALYSIS_VISITS}")
+    if not any(r.get("isDuringSearch") for r in resp):
+        raise AssertionError("reportDuringSearchEvery streamed nothing")
+    if eng._tree_cache_hits != 3:
+        raise AssertionError(f"{eng._tree_cache_hits} tree cache hits, "
+                             "want 3")
+    first = [r for r in finals if r["id"] == "turns"]
+    again = [r for r in finals if r["id"] == "again"]
+    if [[m["visits"] for m in r["moveInfos"]] for r in first] != \
+            [[m["visits"] for m in r["moveInfos"]] for r in again]:
+        raise AssertionError("the cached repeat ran new playouts")
+    # seconds per query: from the start to each query's last final answer
+    ends = {}
+    for t, s in out.stamps:
+        for line in s.splitlines():
+            r = json.loads(line)
+            if not r.get("isDuringSearch"):
+                ends[r["id"]] = t
+    order = sorted(ends.items(), key=lambda kv: kv[1])
+    per_q, prev = {}, t0
+    for qid, t in order:
+        per_q[qid] = t - prev
+        prev = t
+    res = {"seconds": total_s, "seconds_per_query": per_q,
+           "during_search_responses": sum(bool(r.get("isDuringSearch"))
+                                          for r in resp),
+           "cache_hits": eng._tree_cache_hits, "launches": launches}
+    log(f"phase analysis: 4 queries at {ANALYSIS_VISITS} visits in "
+        f"{total_s:.2f} s; seconds per query "
+        f"{json.dumps({k: round(v, 3) for k, v in per_q.items()})}; "
+        f"{res['during_search_responses']} isDuringSearch responses; 3 "
+        f"cache hits; launches {launches}")
+    log("analysis json " + json.dumps(res))
+    return res
 
 
 def main() -> int:
@@ -842,19 +1258,33 @@ def main() -> int:
         sp_out = run_selfplay_phase(model, gen, dev, work)
         del model, driver, res
         torch.cuda.empty_cache()
-        run_train_phase(work, dev)
+        train = run_train_phase(work, dev)
         run_models_dir_phase(work, dev)
+        torch.cuda.empty_cache()
 
-    # ---- 9. report ----
+        # ---- 9-10. the GTP and analysis engines on the exported net ----
+        log(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+            f"cudnn={torch.backends.cudnn.allow_tf32} (DescNet runs with "
+            "both off)")
+        check_desc_net(train["bin_gz"], train["export"],
+                       next((work / "tdata").glob("*.npz")), dev)
+        gtp_out = run_gtp_phase(train["bin_gz"], dev, work)
+        one = one_game_kernel_times(dev)
+        an_out = run_analysis_phase(train["bin_gz"], dev)
+
+    # ---- 11. report ----
     log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} (search 1), "
         f"{sp_out['playouts_per_s']:.1f} (selfplay, {SP_VISITS} visits, "
-        f"tree reuse)")
+        f"tree reuse), {1e3 / gtp_out['playout_ms']:.1f} (one GTP game)")
     kernels = [
         {"name": "chase_lanes", "route": "cuda",
          "source": "katago_torch/ops/csrc/chase.cu",
          "replaces": "katago_tpu/ops/chase_pallas.py:456",
          "launches": launches["chase_lanes"],
          "launches_selfplay": sp_out["launches"]["chase_lanes"],
+         "launches_gtp": gtp_out["launches"]["chase_lanes"],
+         "launches_analysis": an_out["launches"]["chase_lanes"],
+         "ms_one_game": one["k1_ms"], "plain_ms_one_game": one["k1_plain_ms"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_bound_by, "library_ms": None},
@@ -863,6 +1293,9 @@ def main() -> int:
          "replaces": "katago_tpu/ops/labels_pallas.py:138",
          "launches": launches["connected_labels"],
          "launches_selfplay": sp_out["launches"]["connected_labels"],
+         "launches_gtp": gtp_out["launches"]["connected_labels"],
+         "launches_analysis": an_out["launches"]["connected_labels"],
+         "ms_one_game": one["k2_ms"], "plain_ms_one_game": one["k2_plain_ms"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": "bytes" if k2_bytes / HBM_BYTES_PER_S >=

@@ -286,3 +286,10 @@ def area_score_tromp_taylor(stones: torch.Tensor, size: int):
             stones == WHITE, -1, torch.where(
                 region_black, 1, torch.where(region_white, -1, 0))))
     return ownership, ownership.sum(dim=-1).float()
+
+
+def board_to_string(stones, size: int) -> str:
+    """One row of X (black), O (white), . (empty), # (wall) per board row."""
+    chars = {EMPTY: ".", BLACK: "X", WHITE: "O", WALL: "#"}
+    return "\n".join("".join(chars[int(stones[y * size + x])]
+                             for x in range(size)) for y in range(size))

@@ -169,11 +169,18 @@ def hash_eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., 0] == b[..., 0]) & (a[..., 1] == b[..., 1])
 
 
-def new_pos(size: int, g: int = 1, device=None) -> PosState:
+def new_pos(size: int, g: int = 1, device=None,
+            shape_mask=None) -> PosState:
+    """shape_mask: optional bool[NN] on-board mask for rectangular boards;
+    off-shape cells hold WALL stones, which behave like the board edge."""
     dev = resolve_device(device)
     nn = size * size
     e = MAX_ENCORE_KO_CAPS
     board = B.empty_board(size, g, dev)
+    if shape_mask is not None:
+        board.stones = torch.where(
+            torch.as_tensor(shape_mask, device=dev), board.stones,
+            torch.full_like(board.stones, B.WALL))
 
     def full(shape, v, dt):
         return torch.full(shape, v, dtype=dt, device=dev)
@@ -207,13 +214,13 @@ def new_pos(size: int, g: int = 1, device=None) -> PosState:
 
 
 def new_game(size: int, rules, max_hist: int, g: int = 1,
-             device=None) -> GameState:
+             device=None, shape_mask=None) -> GameState:
     """A batch of g fresh games. rules: a Rules (same for every game) or a
-    RulesArr of batch g (its device wins)."""
+    RulesArr of batch g (its device wins). shape_mask: see new_pos."""
     if isinstance(rules, R.Rules):
         rules = RulesArr.from_rules(rules, g, device)
     dev = rules.komi.device
-    pos = new_pos(size, g, dev)
+    pos = new_pos(size, g, dev, shape_mask)
     hist = torch.zeros((g, max_hist, 2), dtype=torch.int64, device=dev)
     hist[:, 0] = _pos_ko_hash(pos, rules)
     p = MAX_PASS_HASHES

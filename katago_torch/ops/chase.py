@@ -31,6 +31,7 @@ rather than a lockstep batch.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -38,6 +39,7 @@ from katago_torch.game import board as B
 from katago_torch.ops import _build
 
 launches = 0          # kernel launches since the last reset (chip_smoke)
+_launches_lock = threading.Lock()   # a ponder thread launches too
 
 K_ADJ = 3   # defender capture candidates examined per ply
 C_CAP = 4   # captured stones tracked exactly per move
@@ -438,5 +440,6 @@ def chase_lanes(stones, labels, hlibs, rep, defender, premove, active, *,
     ins = [t.contiguous() for t in (stones, rep, defender, premove, active)]
     _build.launch(_launch, dev, "chase_lanes", *[t.data_ptr() for t in ins],
                   out.data_ptr(), lanes, size, max_steps)
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out

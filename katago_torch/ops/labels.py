@@ -22,12 +22,14 @@ resolved once, and no device switch or lock is taken on the hot path.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from katago_torch.ops import _build
 
 launches = 0          # kernel launches since the last reset (chip_smoke)
+_launches_lock = threading.Lock()   # a ponder thread launches too
 
 _SIGNATURES = {"connected_labels_launch": [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -94,5 +96,6 @@ def connected_labels(values: torch.Tensor, size: int) -> torch.Tensor:
         _launch = _build.load("labels", _SIGNATURES).connected_labels_launch
     _build.launch(_launch, values.device, "connected_labels",
                   values.data_ptr(), out.data_ptr(), values.shape[0], size)
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out

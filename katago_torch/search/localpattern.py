@@ -56,7 +56,9 @@ def local_pattern_hash(stones, loc, pla, size: int, win: int):
     ty, tx = y + dy, x + dx
     valid = (ty >= 0) & (ty < size) & (tx >= 0) & (tx < size)
     loc2 = (ty * size + tx).clamp(0, nn - 1)
-    state = stones.gather(1, loc2).long()                      # [G, K]
+    # a WALL cell (rectangular boards) reads the last state's keys, as
+    # the JAX gather clamps its out-of-range index
+    state = stones.gather(1, loc2).long().clamp(max=pattern.shape[0] - 1)
     cell = torch.arange(dy.shape[0], device=stones.device)
     pat = pattern[state, cell]                                  # [G, K, 2]
     vals = torch.where(valid.unsqueeze(-1), pat, 0)

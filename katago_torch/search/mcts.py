@@ -23,8 +23,14 @@ Tree reuse (Search::makeMove): `extract_subtree` re-roots each game's
 pool at the child of its played move, and `init_search` /
 `run_search` take the previous trees and actions.
 
-Not ported yet: anti-mirror and pattern bonus, root_num_symmetries > 1,
-sgf metadata, moves ownership, extract_pv and the analysis extras.
+Root extras for the GTP and analysis engines: `root_allowed_mask`
+(avoid/allow moves), `root_num_symmetries` (the root eval averaged over
+sampled dihedral symmetries), `track_moves_ownership` (per-root-move
+ownership), `extract_pv`, `child_analysis_extras`, and the anti-mirror
+hooks of search/mirror.py (`mirror=`; with None the search runs none of
+their code).
+
+Not ported: the pattern bonus (ROADMAP M9) and SGF metadata (M11).
 """
 
 from __future__ import annotations
@@ -73,6 +79,10 @@ NUM_STATS = 18
 
 BIAS_TABLE_SIZE = 2048
 
+PATTERN_BONUS_M9 = ("the pattern bonus (avoidRepeatedPatternUtility) is not "
+                    "ported (ROADMAP M9: search/patternbonus.py, "
+                    "localpattern.py in full)")
+
 
 def child_dt(max_nodes: int):
     return torch.int16 if max_nodes < 2 ** 15 else torch.int32
@@ -113,6 +123,11 @@ class SearchState:
     own_weight: torch.Tensor         # float32[G]
     ending_bonus: torch.Tensor       # float32[G, A]
     root_prev_laddered: torch.Tensor  # bool[G, NN]
+    # per-root-move ownership sums (includeMovesOwnership): [G, A, NN],
+    # [G, A, NN], [G, A] with track_moves_ownership, else [G, 1, 1] dummies
+    mo_sum: torch.Tensor
+    mo_sq_sum: torch.Tensor
+    mo_weight: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -153,6 +168,9 @@ class SearchResult:
     child_score_mean: torch.Tensor
     root_ownership: torch.Tensor
     root_ownership_stdev: torch.Tensor
+    moves_ownership: torch.Tensor         # [G, A, NN] ([G, 1, 1] unless
+    moves_ownership_stdev: torch.Tensor   # track_moves_ownership)
+    moves_own_weight: torch.Tensor        # [G, A]
     root_score_stdev: torch.Tensor
 
 
@@ -326,8 +344,10 @@ def _child_stats(tree: Tree, children):
 
 
 def node_best_action(tree: Tree, node, sp, ending_bonus, dyn_center,
-                     sqrt_area):
-    """PUCT-argmax action of node[G] from its current stats."""
+                     sqrt_area, mirror=None, size: int | None = None):
+    """PUCT-argmax action of node[G] from its current stats. mirror: an
+    anti-mirror verdict whose forced exploration is added to the value
+    terms (the JAX select_path's descent-time PUCT)."""
     children = _rows(tree.children, node)
     pol = _rows(tree.policy, node)
     has_child = children >= 0
@@ -336,9 +356,20 @@ def node_best_action(tree: Tree, node, sp, ending_bonus, dyn_center,
     cw = torch.where(has_child, cstats[..., C_WEIGHT_SUM], 0.0)
     cu = torch.where(has_child, cstats[..., C_UTILITY_SUM]
                      / torch.clamp(cw, min=1e-10), 0.0)
+    pla = _rows(tree.pos.to_move, node)
     explore, value = _puct_terms(
-        nstats, pol, has_child, cw, cu, _rows(tree.pos.to_move, node),
-        node == 0, ending_bonus, dyn_center, sqrt_area, sp)
+        nstats, pol, has_child, cw, cu, pla, node == 0, ending_bonus,
+        dyn_center, sqrt_area, sp)
+    if mirror is not None:
+        from katago_torch.search import mirror as MIR
+        pu = nstats[:, C_UTILITY_SUM] / torch.clamp(nstats[:, C_WEIGHT_SUM],
+                                                    min=1e-10)
+        value = MIR.puct_adjust(
+            value, pol, _rows(tree.pos.recent_moves, node)[:, 0], pla, cw,
+            cw.sum(-1), torch.where(pla == B.WHITE, pu, -pu),
+            _rows(tree.pos.board.stones, node), node == 0, mirror.mirroring,
+            mirror.mirror_pla, mirror.advantage, mirror.center_err,
+            tree.pos.to_move[:, 0], size)
     return _argmax_score(explore, value, pol)
 
 
@@ -352,11 +383,17 @@ def leaf_best_action(leaf_row, pol, pla, sp, dyn_center, sqrt_area):
     return _argmax_score(explore, value, pol)
 
 
-def select_path(ss: SearchState, max_depth: int):
+def select_path(ss: SearchState, max_depth: int, sp=None, mirror=None,
+                size: int | None = None):
     """PUCT descent from every root along cached best actions. Returns
     (PathSel, levels) where levels is the number of descent levels run
     (a host int, the bound of the backup loop). Syncs once per two
-    levels to stop when every game's descent has ended."""
+    levels to stop when every game's descent has ended.
+
+    mirror: an anti-mirror verdict (search/mirror.py MirrorArrs); its
+    forced exploration depends on the descent's context, so the full
+    PUCT is evaluated at every level instead of the cached best action
+    (sp and size are then required)."""
     tree = ss.tree
     dev = tree.visits.device
     g = tree.visits.shape[0]
@@ -374,7 +411,12 @@ def select_path(ss: SearchState, max_depth: int):
     levels = 0
     for i in range(max_depth):
         hit_terminal = ~done & tree.pos.game_over[gi, cur]
-        a = tree.best_action[gi, cur]
+        if mirror is None:
+            a = tree.best_action[gi, cur]
+        else:
+            a = node_best_action(tree, cur, sp, ss.ending_bonus,
+                                 ss.dyn_score_center, ss.sqrt_board_area,
+                                 mirror, size)
         child = tree.children[gi, cur, a].long()
         expanding = ~done & ~hit_terminal & (child < 0)
         descending = ~done & ~hit_terminal & (child >= 0)
@@ -823,6 +865,10 @@ def nn_leaf_eval(raw: dict, legal, to_move, sp, dyn_center, sqrt_area,
     util = utility_of(winloss_w, score_w, meansq_w, sp, dyn_center, sqrt_area)
     weight = uncertainty_weight(st_wl_err, st_score_err, score_w, sp,
                                 dyn_center, sqrt_area)
+    # pre-v9 nets have no error heads: weight 1.0, as the reference's
+    # supportsShorttermError() guard (searchupdatehelpers.cpp:117)
+    if raw.get("supports_shortterm_error", True) is False:
+        weight = torch.ones_like(weight)
     pl = raw["policy_logits"].float()
     logits = pl[:, 0]
     if optimism is not None and pl.shape[1] > 1:
@@ -1001,7 +1047,7 @@ def extract_subtree(tree: Tree, action) -> Tree:
 
 def _reused_tree(prev_tree: Tree, prev_actions, roots: H.GameState, sp,
                  gen: torch.Generator, root_lad, root_town, size: int,
-                 max_nodes: int) -> Tree:
+                 max_nodes: int, root_allowed_mask=None) -> Tree:
     """The previous search's trees re-rooted at the played moves (or, with
     prev_actions None, taken as already rooted at roots), padded to
     max_nodes, with the root's prior re-tempered and re-noised and its
@@ -1033,8 +1079,11 @@ def _reused_tree(prev_tree: Tree, prev_actions, roots: H.GameState, sp,
                                        min=1e-6))
     p = p / torch.clamp(torch.where(legal, p, 0.0).sum(-1, keepdim=True),
                         min=1e-10)
-    p = _root_noise(torch.where(legal, p, -1.0), sp, gen)
-    tree.policy[:, 0, :] = torch.where(legal, p, -1.0).to(POL_DT)
+    p = torch.where(legal, _root_noise(torch.where(legal, p, -1.0), sp, gen),
+                    -1.0)
+    if root_allowed_mask is not None:
+        p = torch.where(root_allowed_mask, p, -1.0)
+    tree.policy[:, 0, :] = p.to(POL_DT)
     tree.laddered[:, 0] = root_lad
     tree.term_own[:, 0] = root_town
     tree.stats[:, 0, C_PATTERN_BONUS] = 0.0   # none on the root itself
@@ -1049,7 +1098,9 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
                 size: int, max_nodes: int, with_ladders: bool = True,
                 ladder_mode: str = "chase", root_num_symmetries: int = 1,
                 feature_version: int = 7, prev_tree: Tree | None = None,
-                prev_actions=None) -> SearchState:
+                prev_actions=None, root_allowed_mask=None, mirror=None,
+                track_moves_ownership: bool = False,
+                _root_syms=None) -> SearchState:
     """SearchState for a batch of games (Search::beginSearch): root NN
     eval, Dirichlet noise, dynamic score center, root pruning.
 
@@ -1058,9 +1109,15 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
     and falls back to a fresh root where that child was never expanded.
     With prev_actions None, prev_tree is taken as already rooted at the
     current positions. The reused root's stored prior gets the root
-    temperature and noise again."""
-    if root_num_symmetries != 1:
-        raise NotImplementedError("root_num_symmetries > 1 is not ported")
+    temperature and noise again.
+
+    root_allowed_mask bool[G, A]: avoid/allow moves; disallowed root
+    moves get an illegal prior. root_num_symmetries > 1: the root eval
+    averaged over that many dihedral symmetries per game, drawn from gen
+    (_root_syms int[n, G] gives them instead: the tests pass the JAX
+    fixture's, since a JAX key cannot be reproduced). mirror: the
+    anti-mirror verdict (root prior boosts). track_moves_ownership:
+    allocate the per-root-move ownership sums run_playouts fills."""
     nn = size * size
     dev = roots.pos.to_move.device
     g = roots.pos.to_move.shape[0]
@@ -1083,17 +1140,39 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
         own_weight=torch.zeros((g,), device=dev),
         ending_bonus=torch.zeros((g, nn + 1), device=dev),
         root_prev_laddered=torch.zeros((g, nn), dtype=torch.bool,
-                                       device=dev))
+                                       device=dev),
+        mo_sum=torch.zeros((g, nn + 1, nn) if track_moves_ownership
+                           else (g, 1, 1), device=dev),
+        mo_sq_sum=torch.zeros((g, nn + 1, nn) if track_moves_ownership
+                              else (g, 1, 1), device=dev),
+        mo_weight=torch.zeros((g, nn + 1 if track_moves_ownership else 1),
+                              device=dev))
     if with_ladders:
         ss.root_prev_laddered = LAD.batch_solver(ladder_mode)(
             roots.pos.prev_stones.to(torch.int32), size,
             ko_loc=roots.pos.prev_ko_loc).laddered
 
-    raw, root_legal, root_lad = evaluator(roots, feat_params)
-    root_ev = nn_leaf_eval(raw, root_legal, roots.pos.to_move, sp,
-                           ss.dyn_score_center, ss.sqrt_board_area,
-                           sp.root_policy_temperature.expand(g),
-                           optimism=sp.root_policy_optimism)
+    def eval_with_sym(sym):
+        raw, legal, lad = evaluator(roots, feat_params, sym=sym)
+        ev = nn_leaf_eval(raw, legal, roots.pos.to_move, sp,
+                          ss.dyn_score_center, ss.sqrt_board_area,
+                          sp.root_policy_temperature.expand(g),
+                          optimism=sp.root_policy_optimism)
+        return ev, legal, lad
+
+    if root_num_symmetries <= 1:
+        root_ev, root_legal, root_lad = eval_with_sym(None)
+    else:
+        # rootNumSymmetriesToSample (searchparams.h:76): sampled with
+        # replacement; the derived values and policy probs are averaged
+        # (illegal slots stay -1: legality is symmetry-invariant)
+        syms = _root_syms if _root_syms is not None else torch.randint(
+            0, 8, (root_num_symmetries, g), generator=gen, device=dev)
+        syms = syms.to(dev)
+        root_ev, root_legal, root_lad = eval_with_sym(syms[0])
+        evs = [root_ev] + [eval_with_sym(syms[i])[0]
+                           for i in range(1, root_num_symmetries)]
+        root_ev = T.tree_map(lambda *xs: sum(xs) / float(len(xs)), *evs)
 
     if bool(sp.wide_root_noise > 0.0):
         pol = root_ev.policy
@@ -1111,7 +1190,19 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
     ss.dyn_score_center = torch.minimum(torch.maximum(center, expected - cap),
                                         expected + cap)
 
+    if mirror is not None:
+        from katago_torch.search import mirror as MIR
+        root_ev.policy = MIR.adjust_policy(
+            root_ev.policy, roots.pos.recent_moves[:, 0], roots.pos.to_move,
+            torch.zeros((g,), dtype=torch.int64, device=dev),
+            roots.pos.board.stones, mirror.mirroring, mirror.mirror_pla,
+            mirror.advantage, roots.pos.to_move, size)
+
     root_pol = _root_noise(root_ev.policy, sp, gen)
+    if root_allowed_mask is not None:
+        # avoidMoves / allowMoves: disallowed root moves get an illegal
+        # prior so the search never tries them
+        root_pol = torch.where(root_allowed_mask, root_pol, -1.0)
 
     stones_r = roots.pos.board.stones
     rm = roots.pos.recent_moves
@@ -1159,7 +1250,8 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
     tree.num_nodes[:] = 1
     if prev_tree is not None:
         reused = _reused_tree(prev_tree, prev_actions, roots, sp, gen,
-                              root_lad, root_town, size, max_nodes)
+                              root_lad, root_town, size, max_nodes,
+                              root_allowed_mask)
         tree = T.where(reused.num_nodes > 0, reused, tree)
         ss.tree = tree
     ss.own_sum = root_ev.weight.unsqueeze(-1) * root_ev.ownership
@@ -1208,13 +1300,20 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
                  with_ladders: bool = True, ladder_mode: str = "chase",
                  max_visits: int | None = None, active_mask=None,
                  max_superko_retries: int = 3,
-                 feature_version: int = 7) -> SearchState:
+                 feature_version: int = 7, mirror=None,
+                 pattern_bonus=None,
+                 track_moves_ownership: bool = False) -> SearchState:
     """Advance every game's search by num_sims playouts (in place).
 
     max_visits: games whose root reached it run masked no-op playouts.
     A superko-rejected expansion marks the prior illegal and retries the
     descent up to max_superko_retries times; only a game that exhausts
-    the retries voids its playout."""
+    the retries voids its playout. mirror: the anti-mirror verdict
+    (descent-time forced exploration, fresh-node prior boosts).
+    track_moves_ownership: each leaf eval's ownership is added to its
+    playout's root move (init_search must have allocated the sums)."""
+    if pattern_bonus is not None:
+        raise NotImplementedError(PATTERN_BONUS_M9)
     nn = size * size
     a = nn + 1
     g = ss.root_hist_len.shape[0]
@@ -1227,7 +1326,7 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
     random_sym = bool(sp.nn_random_symmetry)     # one sync, not one a playout
 
     def select_leaf():
-        sel, levels = select_path(ss, max_depth)
+        sel, levels = select_path(ss, max_depth, sp, mirror, size)
         leaf_pos, leaf_kh, leaf_gs = make_leaf_gamestate(ss, sel, size)
         max_hist = leaf_gs.ko_hash_hist.shape[1]
         valid = torch.arange(max_hist, device=dev) < \
@@ -1293,6 +1392,15 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
         leaf_term_ev.policy = nn_ev.policy
         ev = T.where(sel.is_terminal, term_ev,
                      T.where(leaf_pos.game_over, leaf_term_ev, nn_ev))
+        if mirror is not None:
+            # anti-mirror prior boosts on the fresh node's policy
+            # (maybeApplyAntiMirrorPolicy, searchmirror.cpp:95-153)
+            from katago_torch.search import mirror as MIR
+            ev.policy = MIR.adjust_policy(
+                ev.policy, sel.leaf_action, leaf_pos.to_move,
+                ss.tree.depth[gi, sel.leaf_parent] + 1,
+                leaf_pos.board.stones, mirror.mirroring, mirror.mirror_pla,
+                mirror.advantage, ss.tree.pos.to_move[:, 0], size)
         insert_and_backup(ss, sel, levels, leaf_pos, leaf_kh, ev, void,
                           active, sp, leaf_lad if with_ladders else None,
                           size)
@@ -1302,6 +1410,17 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
         ss.own_sq_sum = ss.own_sq_sum + torch.where(
             ok, ev.weight.unsqueeze(-1) * ev.ownership ** 2, 0.0)
         ss.own_weight = ss.own_weight + torch.where(ok[:, 0], ev.weight, 0.0)
+        if track_moves_ownership:
+            # the leaf eval belongs to its playout's root child
+            # (analysis.cpp includeMovesOwnership)
+            ra = sel.root_action.clamp(min=0)
+            okm = (ok[:, 0] & (sel.root_action >= 0)).unsqueeze(-1)
+            wo = ev.weight.unsqueeze(-1) * ev.ownership
+            ss.mo_sum[gi, ra] = ss.mo_sum[gi, ra] + torch.where(okm, wo, 0.0)
+            ss.mo_sq_sum[gi, ra] = ss.mo_sq_sum[gi, ra] + torch.where(
+                okm, wo * ev.ownership, 0.0)
+            ss.mo_weight[gi, ra] = ss.mo_weight[gi, ra] + torch.where(
+                okm[:, 0], ev.weight, 0.0)
     return ss
 
 
@@ -1310,17 +1429,27 @@ def run_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
                with_ladders: bool = True, ladder_mode: str = "chase",
                prev_tree: Tree | None = None, prev_actions=None,
                max_visits: int | None = None, active_mask=None,
-               feature_version: int = 7) -> SearchResult:
+               feature_version: int = 7, root_allowed_mask=None,
+               root_num_symmetries: int = 1, mirror=None,
+               pattern_bonus=None, track_moves_ownership: bool = False,
+               _root_syms=None) -> SearchResult:
     """One-shot search: init (with optional tree reuse), exactly num_sims
-    playouts under the max_visits cap, then the results."""
+    playouts under the max_visits cap, then the results. The root
+    extras are those of init_search and run_playouts."""
     ss = init_search(model, roots, sp, gen, size=size, max_nodes=max_nodes,
                      with_ladders=with_ladders, ladder_mode=ladder_mode,
                      feature_version=feature_version, prev_tree=prev_tree,
-                     prev_actions=prev_actions)
+                     prev_actions=prev_actions,
+                     root_allowed_mask=root_allowed_mask,
+                     root_num_symmetries=root_num_symmetries, mirror=mirror,
+                     track_moves_ownership=track_moves_ownership,
+                     _root_syms=_root_syms)
     run_playouts(model, ss, sp, gen, size=size, num_sims=num_sims,
                  max_depth=max_depth, with_ladders=with_ladders,
                  ladder_mode=ladder_mode, max_visits=max_visits,
-                 active_mask=active_mask, feature_version=feature_version)
+                 active_mask=active_mask, feature_version=feature_version,
+                 mirror=mirror, pattern_bonus=pattern_bonus,
+                 track_moves_ownership=track_moves_ownership)
     return collect_results(ss)
 
 
@@ -1343,6 +1472,8 @@ def collect_results(ss: SearchState) -> SearchResult:
     root = tree.stats[:, 0]
     own_w = torch.clamp(ss.own_weight, min=1e-10).unsqueeze(-1)
     own_mean = ss.own_sum / own_w
+    mo_w = torch.clamp(ss.mo_weight, min=1e-10).unsqueeze(-1)
+    mo_mean = ss.mo_sum / mo_w
     return SearchResult(
         ss=ss,
         root_visits=tree.visits[:, 0],
@@ -1357,6 +1488,10 @@ def collect_results(ss: SearchState) -> SearchResult:
         root_ownership=own_mean,
         root_ownership_stdev=torch.sqrt(torch.clamp(
             ss.own_sq_sum / own_w - own_mean ** 2, min=0.0)),
+        moves_ownership=mo_mean,
+        moves_ownership_stdev=torch.sqrt(torch.clamp(
+            ss.mo_sq_sum / mo_w - mo_mean ** 2, min=0.0)),
+        moves_own_weight=ss.mo_weight,
         root_score_stdev=torch.sqrt(torch.clamp(
             root[:, C_SCORE_MEANSQ_SUM] / root_w
             - (root[:, C_SCORE_MEAN_SUM] / root_w) ** 2, min=0.0)))
@@ -1397,6 +1532,73 @@ def _child_lcb_radius(result: SearchResult, sp):
     good = exists & (w > 0)
     lcb = torch.where(good, self_u - radius, -radius_max)
     return exists, good, w, self_u, radius, lcb
+
+
+def extract_pv(tree: Tree, max_len: int = 15, start=0, games=None):
+    """Principal variations by greedy max-edge-visits descent
+    (Search::appendPV / getPV, searchresults.cpp:773-867), batched.
+
+    games int[K]: the game of each PV (default: every game once); start:
+    the node each PV descends from, an int or int[K] (0 = the root; a
+    child index gives a candidate's continuation; negative = empty).
+    Returns (moves int64[K, max_len], -1 padded, and lengths int64[K])."""
+    dev = tree.visits.device
+    if games is None:
+        games = torch.arange(tree.visits.shape[0], device=dev)
+    start = torch.as_tensor(start, device=dev).long().expand(games.shape)
+    node = start.clamp(min=0)
+    done = start < 0
+    moves = torch.full((games.shape[0], max_len), -1, dtype=torch.int64,
+                       device=dev)
+    visits = tree.visits[games]
+    kk = torch.arange(games.shape[0], device=dev)
+    for i in range(max_len):
+        children = tree.children[games, node].long()
+        w = torch.where(children >= 0, visits.gather(1, children.clamp(
+            min=0)), -1)
+        best = torch.argmax(w, dim=1)
+        child = children[kk, best]
+        valid = (child >= 0) & (w[kk, best] > 0) & ~done
+        moves[:, i] = torch.where(valid, best, -1)
+        node = torch.where(valid, child.clamp(min=0), node)
+        done = done | ~valid
+    return moves, (moves >= 0).sum(1)
+
+
+def child_analysis_extras(result: SearchResult, sp) -> dict:
+    """Reporting-only per-root-child stats for moveInfos
+    (searchresults.cpp getJson: lcb / utilityLcb / scoreStdev / weight).
+
+    Returns a dict of [G, A] tensors: "weight" (subtree weight sum),
+    "utility_lcb" (white-perspective utility LCB), "radius" (utility LCB
+    radius), "lcb" (the winrate-scale LCB of
+    PlayUtils::getHackedLCBForWinrate, white perspective), "score_stdev"
+    (subtree score stdev) and "exists"."""
+    tree = result.ss.tree
+    exists, good, w, self_u, radius, lcb = _child_lcb_radius(result, sp)
+    pla = tree.pos.to_move[:, 0].unsqueeze(-1)
+    white_lcb = torch.where(pla == B.WHITE, lcb, -lcb)
+    c = tree.children[:, 0, :].long().clamp(min=0)
+
+    def gat(col):
+        return tree.stats[..., col].gather(1, c)
+
+    winv = 1.0 / torch.clamp(w, min=1e-10)
+    wl_avg = gat(C_WINLOSS_SUM) * winv
+    sc_avg = gat(C_SCORE_MEAN_SUM) * winv
+    scsq_avg = gat(C_SCORE_MEANSQ_SUM) * winv
+    score_stdev = torch.sqrt(torch.clamp(scsq_avg - sc_avg * sc_avg,
+                                         min=0.0))
+    # winrate-scale LCB (playutils.cpp:345-361): the utility radius scaled
+    # by how much winrate matters within utility, in the mover's direction
+    hack = 0.5 * sp.win_loss_utility_factor / (
+        sp.win_loss_utility_factor + sp.static_score_utility_factor
+        + sp.dynamic_score_utility_factor + 1e-20)
+    winrate = 0.5 * (1.0 + wl_avg)
+    hacked = torch.where(pla == B.WHITE, winrate - radius * hack,
+                         winrate + radius * hack)
+    return {"weight": w, "utility_lcb": white_lcb, "radius": radius,
+            "lcb": hacked, "score_stdev": score_stdev, "exists": good}
 
 
 def _lcb_adjusted_selection_weights(result: SearchResult, sp):

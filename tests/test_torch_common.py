@@ -337,3 +337,297 @@ def write_shards(data_dir, size: int, rows_per_file, seed: int) -> list:
         np.savez_compressed(path, **random_rows(size, n, seed * 1000 + i))
         paths.append(path)
     return paths
+
+
+# model version -> (inputs version, sv3 channels), modelversion.cpp and
+# desc.cpp:2305-2330 (the table of tests/test_desc_versions.py, 3..17)
+DESC_VERSIONS = {v: ({3: 3, 4: 3, 5: 4, 6: 5, 7: 6}.get(v, 7),
+                     1 if v == 3 else 2 if v <= 7 else 4 if v == 8 else 6)
+                 for v in range(3, 18)}
+DESC_SPATIAL = {3: 22, 4: 22, 5: 13, 6: 22, 7: 22}
+DESC_GLOBAL = {3: 14, 4: 14, 5: 12, 6: 16, 7: 19}
+# non-default postprocess multipliers (v13+): the rebase branches
+DESC_POSTPROCESS = {13: (20.0, 24.0, 25.0, 18.0, 44.0, 0.25, 30.0),
+                    14: (20.0, 20.0, 20.0, 20.0, 40.0, 0.3, 26.0)}
+
+
+def write_tiny_model(path, version: int, seed: int) -> None:
+    """A small valid model file in the reference's text float format for
+    any version 3..17 (after tests/test_desc_versions.py's writer): an
+    ordinary, a gpool and a nested-bottleneck block (one ordinary and one
+    gpool block inside), relu, mish and silu activations from v11, a v15+
+    pass MLP, v17 head options, and non-default postprocess multipliers
+    at v13 and v14."""
+    import gzip
+    rng = np.random.default_rng(seed)
+    iv, nsv = DESC_VERSIONS[version]
+    n_sp, n_gl = DESC_SPATIAL[iv], DESC_GLOBAL[iv]
+    tc, mc, gc, pc, vc, v2 = 8, 6, 4, 4, 4, 6
+    npol = 1 if version < 12 else 2
+    toks = []
+
+    def t(*xs):
+        toks.extend(str(x) for x in xs)
+
+    def floats(*shape):
+        w = rng.standard_normal(shape).astype(np.float32) * 0.2
+        toks.extend(repr(float(x)) for x in w.reshape(-1))
+
+    def conv(name, k, ic, oc):
+        t(name, k, k, ic, oc, 1, 1)
+        floats(k, k, ic, oc)
+
+    def bn(name, c):
+        t(name, c, 1e-5, 1, 1)
+        floats(c)                                       # mean
+        toks.extend(repr(float(v)) for v in 0.5 + rng.random(c))  # var
+        floats(c)                                       # scale
+        floats(c)                                       # bias
+
+    def act(name, kind="ACTIVATION_RELU"):
+        t(name)
+        if version >= 11:
+            t(kind)
+
+    def matmul(name, ic, oc):
+        t(name, ic, oc)
+        floats(ic, oc)
+
+    def matbias(name, c):
+        t(name, c)
+        floats(c)
+
+    def ordinary(name, c, m):
+        t("ordinary_block", name)
+        bn(name + "pre", c)
+        act(name + "preact")
+        conv(name + "c1", 3, c, m)
+        bn(name + "mid", m)
+        act(name + "midact", "ACTIVATION_MISH")
+        conv(name + "c2", 3, m, c)
+
+    def gpool(name, c, m):
+        t("gpool_block", name)
+        bn(name + "pre", c)
+        act(name + "preact", "ACTIVATION_SILU")
+        conv(name + "c1", 3, c, m)
+        conv(name + "g1", 3, c, gc)
+        bn(name + "gbn", gc)
+        act(name + "gact")
+        matmul(name + "g2b", 3 * gc, m)
+        bn(name + "mid", m)
+        act(name + "midact")
+        conv(name + "c2", 3, m, c)
+
+    t("tiny", version, n_sp, n_gl)
+    if version >= 13:
+        t(*DESC_POSTPROCESS.get(version,
+                                (20.0, 20.0, 20.0, 20.0, 40.0, 0.25, 30.0)))
+    if version >= 15:
+        t(0, 0, 0, 0, 0, 0, 0, 0)     # metaEncoderVersion, passAlive, 6 rsv
+    t("trunk", 3, tc, mc, mc, 0, gc)
+    if version >= 15:
+        t(0, 0, 0, 0, 0, 0)           # norm kind + 5 reserved
+    conv("initconv", 5, n_sp, tc)
+    matmul("initmm", n_gl, tc)
+    ordinary("b0", tc, mc)
+    gpool("b1", tc, mc)
+    t("nested_bottleneck_block", "b2", 2)
+    bn("b2pre", tc)
+    act("b2preact")
+    conv("b2c1", 1, tc, mc)
+    ordinary("b2s0", mc, mc)
+    gpool("b2s1", mc, mc)
+    bn("b2post", mc)
+    act("b2postact")
+    conv("b2c2", 1, mc, tc)
+    bn("tipbn", tc)
+    act("tipact", "ACTIVATION_MISH")
+    t("policyhead")
+    if version >= 17:
+        t(npol, 0, 0, 0)
+    conv("p1conv", 1, tc, pc)
+    conv("g1conv", 1, tc, gc)
+    bn("g1bn", gc)
+    act("g1act")
+    matmul("g2b", 3 * gc, pc)
+    bn("p1bn", pc)
+    act("p1act")
+    conv("p2conv", 1, pc, npol)
+    matmul("gpass", 3 * gc, npol)
+    if version >= 15:
+        matbias("passbias", npol)
+        act("passact", "ACTIVATION_SILU")
+        matmul("gpass2", npol, npol)
+    t("valuehead")
+    if version >= 17:
+        t(0, 0, 0)
+    conv("v1conv", 1, tc, vc)
+    bn("v1bn", vc)
+    act("v1act")
+    matmul("v2mul", 3 * vc, v2)
+    matbias("v2bias", v2)
+    act("v2act")
+    matmul("v3mul", v2, 3)
+    matbias("v3bias", 3)
+    matmul("sv3mul", v2, nsv)
+    matbias("sv3bias", nsv)
+    conv("ownconv", 1, vc, 1)
+    with gzip.GzipFile(path, "wb", mtime=0) as f:   # stable sha256
+        f.write(" ".join(toks).encode("ascii"))
+
+
+def desc_inputs(version: int, size: int, b: int, seed: int):
+    """Seeded spatial [b, size, size, C] and global [b, G] inputs of a
+    version's input planes, and a mask with the last row off-board."""
+    iv = DESC_VERSIONS[version][0]
+    rng = np.random.default_rng(seed)
+    sp = (rng.random((b, size, size, DESC_SPATIAL[iv])) < 0.3).astype(
+        np.float32)
+    gl = rng.standard_normal((b, DESC_GLOBAL[iv])).astype(np.float32)
+    mask = np.ones((b, size, size, 1), np.float32)
+    mask[1:, -1] = 0.0
+    return sp, gl, mask
+
+
+# ---- scripted front-end sessions (tools/make_torch_fixtures.py gtp and
+# analysis makers; tests/test_torch_{gtp,analysis}.py) --------------------
+
+GTP_VISITS = 8
+
+
+def _mirror_plays(size: int = 9, n_pairs: int = 15) -> str:
+    """play commands of tests/test_mirror.py's history (white mirrors)."""
+    cand = [0, 1, 2, 9, 10, 11, 18, 19, 20, 3, 12, 21, 27, 28, 29,
+            4, 13, 22, 31, 36, 37]
+    cols = "ABCDEFGHJ"
+    out = []
+    for i in range(n_pairs):
+        b = cand[i % len(cand)]
+        m = (size - 1 - b // size) * size + (size - 1 - b % size)
+        for color, loc in (("b", b), ("w", m)):
+            out.append(f"play {color} {cols[loc % size]}{size - loc // size}")
+    return "\n".join(out)
+
+
+GTP_SCRIPT = "\n".join([
+    "protocol_version", "name", "version", "known_command genmove",
+    "known_command frobnicate", "boardsize 9", "komi 6.5", "clear_board",
+    "play b E5", "play w C3", "play b G7", "genmove w", "genmove b",
+    "1 kata-analyze interval 0 rootInfo true pvVisits true ownership true "
+    "minmoves 3",
+    "kata-analyze w avoid w D4,E4 1 maxmoves 4 interval 0",
+    "undo", "kata-raw-nn 0", "showboard", "debug_moves C7",
+    "kata-search b", "kata-search_debug w", "genmove_analyze w 0",
+    "final_score", "final_status_list alive", "final_status_list dead",
+    "play b E5", "play b Z9", "play x E5", "frobnicate", "undo",
+    "kata-get-rules", "kata-set-rules japanese", "kata-get-rules",
+    "kata-set-rule koRule SIMPLE", "kgs-rules chinese", "kata-get-rules",
+    "kata-get-komi", "komi 7.5", "get_komi",
+    "kata-get-param maxVisits", "kata-set-param cpuctExploration 0.9",
+    "kata-get-param cpuctExploration", "kata-get-param frobnicate",
+    "kata-set-params {\"antiMirror\": true, \"maxVisits\": 16}",
+    "kata-get-params", "kata-list-params", "kata-get-models",
+    "kata-raw-human-nn", "printsgf",
+    "clear_board", "fixed_handicap 2", "showboard",
+    "clear_board", "place_free_handicap 2", "showboard",
+    "clear_board", "set_free_handicap C3 G7", "genmove w",
+    "kata-set-position b A1 w B2 b C3", "showboard",
+    "kata-set-position b A1 w A2 b", "kata-set-position b A1 b A1",
+    "boardsize 25", "rectangular_boardsize 9 7", "showboard",
+    "genmove b", "boardsize 9",
+    "clear_board", _mirror_plays(), "genmove b", "genmove w",
+    "kata-debug-print-tc", "time_settings 60 5 1", "kata-debug-print-tc",
+    "kata-time_settings fischer 30 2", "kata-debug-print-tc",
+    "kata-time_settings fischer-capped 30 2 60 10", "kata-debug-print-tc",
+    "kata-time_settings byoyomi 30 5 3", "kata-debug-print-tc",
+    "time_left b 20 0", "kata-debug-print-tc",
+    "kgs-time_settings canadian 30 10 5", "kata-debug-print-tc",
+    "kata-time_settings sundial 1", "kata-list-time-settings",
+    "kata-time_settings none", "kata-debug-print-tc",
+    "stop", "clear_cache", "quit"]) + "\n"
+
+GTP_CONFIG = """# GTP config for the main() session
+maxVisits = 12
+rules = japanese
+komi = 6.5
+cpuctExploration = 1.1
+rootEndingBonusPoints = 0.4
+lagBuffer = 0.5
+ponderingEnabled = false
+allowResignation = true
+numSearchThreads = 8
+"""
+
+GTP_MAIN_SCRIPT = "\n".join([
+    "kata-get-rules", "get_komi", "kata-get-param maxVisits",
+    "kata-get-param cpuctExploration", "kata-get-param lagBuffer",
+    "play b D5", "genmove w", "genmove b", "showboard", "quit"]) + "\n"
+
+_Q1 = {"id": "q1", "moves": [["B", "C3"], ["W", "B2"], ["B", "D4"]],
+       "rules": "tromp-taylor", "komi": 7.5, "boardXSize": 5,
+       "boardYSize": 5, "analyzeTurns": [1, 2, 3], "maxVisits": 8}
+
+ANALYSIS_SCRIPTS = {"main": "\n".join([
+    __import__("json").dumps(q) for q in [
+        _Q1,
+        {"id": "q2", "moves": [["B", "C3"]], "boardXSize": 5,
+         "maxVisits": 8, "includeOwnership": True,
+         "includeOwnershipStdev": True, "includeMovesOwnership": True,
+         "includeMovesOwnershipStdev": True, "includePVVisits": True,
+         "includePolicy": True,
+         "avoidMoves": [{"player": "W", "moves": ["B2", "D4"],
+                         "untilDepth": 1}]},
+        {"id": "q3", "moves": [["B", "B3"]], "boardXSize": 5,
+         "maxVisits": 12, "reportDuringSearchEvery": 1e-6},
+        {"id": "q4", "moves": [["B", "C3"]], "boardXSize": 5,
+         "maxVisits": 6, "allowMoves": [{"player": "W",
+                                          "moves": ["B2", "D4", "pass"],
+                                          "untilDepth": 1}]},
+        {"id": "q5", "action": "query_version"},
+        {"id": "q6", "action": "query_models"},
+        {"id": "q7", "moves": [], "boardXSize": 5, "maxVisits": 6,
+         "priority": 5, "overrideSettings": {"cpuctExploration": 0.8,
+                                             "bogusKey": 1},
+         "bogusField": 1},
+        {"id": "q8", "moves": [["B", "C3"]], "boardXSize": 5,
+         "analyzeTurns": [5]},
+        {"moves": []},
+        {"id": "q9", "moves": [["B", "C3"], ["W", "C4"]],
+         "rules": "japanese", "boardXSize": 5, "maxVisits": 8},
+        {"id": "t1", "action": "terminate", "terminateId": "q9"},
+        {"id": "t2", "action": "terminate"},
+        {"id": "q10", "moves": [["B", "C3"], ["W", "C4"]],
+         "rules": "japanese", "boardXSize": 5, "maxVisits": 8,
+         "initialStones": [["W", "A1"]], "komi": 6.5,
+         "includePolicy": True},
+        dict(_Q1, id="q11"),
+    ]] + ["{not json", ""])}
+
+
+# the root extras fixture (tools/make_torch_fixtures.py search_extras)
+EXTRAS_MASK_AVOID = [6, 7, 12, 13, 18]     # game 0: avoided root moves
+EXTRAS_MASK_ALLOW = [0, 1, 3, 9, 14, 15, 21, 23, 24, 25]   # game 1 only
+
+
+def extras_mask(size):
+    nn = size * size
+    mask = np.ones((2, nn + 1), bool)
+    mask[0, EXTRAS_MASK_AVOID] = False
+    mask[1, :] = False
+    mask[1, EXTRAS_MASK_ALLOW] = True
+    return mask
+
+
+def mirror_history(size, n_pairs):
+    """tests/test_mirror.py's history: black plays, white mirrors."""
+    def mirror_loc(loc):
+        return (size - 1 - loc // size) * size + (size - 1 - loc % size)
+    cand = [0, 1, 2, 9, 10, 11, 18, 19, 20, 3, 12, 21, 27, 28, 29,
+            4, 13, 22, 31, 36, 37]
+    moves, plas = [], []
+    for i in range(n_pairs):
+        b = cand[i % len(cand)]
+        moves += [b, mirror_loc(b)]
+        plas += [1, 2]
+    return moves, plas

@@ -44,6 +44,19 @@ Fixtures:
   train_resume  3 SGD steps with an -lr-schedule, then a resume for 3
                 more: both runs' metrics lines, the final state, and the
                 optimizer count the checkpoint restores
+  desc          load_model + apply_desc_model on the tiny text-format
+                models of every version 3..17 (tests.test_torch_common.
+                write_tiny_model) and on b1c6_s3.bin.gz, which it writes
+                with the JAX exporter from weights_b1c6_s3
+  search_extras a 5x5 run_search with ladders on, root_allowed_mask,
+                root_num_symmetries=4 (the symmetry ids it drew) and
+                track_moves_ownership, its extract_pv and
+                child_analysis_extras; and 9x9 searches of a mirrored
+                game with and without MirrorArrs
+  gtp           a scripted 9x9 GTP session of the JAX engine on
+                b1c6_s3.bin.gz (visit-bounded searches only), and a
+                second one through gtp.main with a config file
+  analysis      scripted 5x5 analysis-engine sessions on b1c6_s3.bin.gz
 """
 
 from __future__ import annotations
@@ -697,6 +710,174 @@ def make_train_resume():
         "global_step": meta2["global_step"]})
 
 
+BIN_B1C6 = OUT / f"b1c6_s{WEIGHT_SEED}.bin.gz"
+DESC_SIZE, DESC_BATCH = 7, 3
+
+
+def make_desc():
+    from katago_tpu.models import desc as JD
+    from katago_tpu.models import export as JEXP
+    arrays = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for v in range(3, 18):
+            path = f"{tmp}/v{v}.txt.gz"
+            C.write_tiny_model(path, v, seed=v)
+            desc = JD.load_model(path)
+            sp, gl, mask = C.desc_inputs(v, DESC_SIZE, DESC_BATCH, seed=v)
+            out = JD.apply_desc_model(desc, sp, gl, mask=mask)
+            for k, val in out.items():
+                if k != "supports_shortterm_error":
+                    arrays[f"v{v}/{k}"] = np.asarray(val)
+            arrays[f"v{v}/sha256"] = np.array(desc.sha256)
+    JEXP.export_model(jax_params(), JC.get_config("b1c6"), str(BIN_B1C6),
+                      name="b1c6-s3")
+    desc = JD.load_model(str(BIN_B1C6))
+    sp, gl, _ = C.desc_inputs(15, 9, DESC_BATCH, seed=100)
+    for k, val in JD.apply_desc_model(desc, sp, gl).items():
+        arrays[f"bin/{k}"] = np.asarray(val)
+    arrays["bin/sha256"] = np.array(desc.sha256)
+    save("desc", arrays, {
+        "versions": list(range(3, 18)), "size": DESC_SIZE,
+        "batch": DESC_BATCH, "inputs": "tests.test_torch_common.desc_inputs"
+        "(version, size, batch, seed=version); the bin file's: (15, 9, "
+        "batch, seed=100), no mask",
+        "models": "write_tiny_model(path, version, seed=version)",
+        "bin": BIN_B1C6.name, "bin_weights": f"weights_b1c6_s{WEIGHT_SEED}"})
+
+
+EXTRAS_SYMS = 4
+MIRROR_SIZE, MIRROR_VISITS = 9, 32
+
+
+def make_search_extras():
+    from katago_tpu.models import desc as JD
+    from katago_tpu.search import mcts as JM
+    from katago_tpu.search import mirror as JMIR
+    size, visits = SEARCH_SIZE, SEARCH_VISITS
+    params = jax_params()
+    jm = jax_model(size)
+    roots, _ = _jax_roots(size, SEARCH_MOVES)
+    sp = _search_params()
+    mask = C.extras_mask(size)
+    key = jax.random.PRNGKey(5)
+    # the symmetry ids init_search draws (run_search splits its key in 3,
+    # init_search splits its share once more)
+    r_init = jax.random.split(key, 3)[1]
+    syms = np.asarray(jax.random.randint(jax.random.split(r_init)[1],
+                                         (EXTRAS_SYMS, 2), 0, 8))
+    res = jax.jit(lambda r, k, m: JM.run_search(
+        jm.apply, params, r, sp, k, size=size, num_sims=visits,
+        max_nodes=visits + 3, max_visits=visits + 1, with_ladders=True,
+        root_allowed_mask=m, root_num_symmetries=EXTRAS_SYMS,
+        track_moves_ownership=True))(roots, key, jnp.asarray(mask))
+    arrays = _result_arrays(res, "x/")
+    for n in ("moves_ownership", "moves_ownership_stdev",
+              "moves_own_weight"):
+        arrays[f"x/{n}"] = np.asarray(getattr(res, n))
+    pv, pv_len = jax.vmap(lambda t: JM.extract_pv(t, 15))(res.ss.tree)
+    cv = np.asarray(res.child_visits)
+    top = cv.argmax(1)
+    starts = np.asarray(res.ss.tree.children)[np.arange(2), 0, top]
+    cpv, cpv_len = jax.vmap(lambda t, st: JM.extract_pv(t, 14, start=st))(
+        res.ss.tree, jnp.asarray(starts, jnp.int32))
+    arrays.update({"x/pv": np.asarray(pv), "x/pv_len": np.asarray(pv_len),
+                   "x/child_pv": np.asarray(cpv),
+                   "x/child_pv_len": np.asarray(cpv_len), "syms": syms,
+                   "mask": mask})
+    for k, v in JM.child_analysis_extras(res, sp).items():
+        arrays[f"x/extras/{k}"] = np.asarray(v)
+
+    # a mirrored 9x9 game (tests/test_mirror.py's history): the desc net
+    desc = JD.load_model(str(BIN_B1C6))
+    apply = JD.make_desc_apply(desc)
+    moves, plas = C.mirror_history(MIRROR_SIZE, 15)
+    gs = C.jax_batch(JH.new_game(MIRROR_SIZE, JH.RulesArr.from_rules(
+        JR.Rules.tromp_taylorish()), 128), 1)
+    step = jax.jit(jax.vmap(lambda s, m: JH.step(s, m, MIRROR_SIZE)[0]))
+    for mv in moves:
+        gs = step(gs, jnp.asarray([mv], jnp.int32))
+    stones = np.asarray(gs.pos.board.stones[0])
+    mirroring, adv, err = JMIR.detect_game(
+        moves, plas, root_pla=1, stones=stones, komi=7.5,
+        scoring_area=True, size=MIRROR_SIZE)
+    assert mirroring
+    marr = JMIR.MirrorArrs(
+        mirroring=jnp.asarray([True]), mirror_pla=jnp.asarray([2], jnp.int32),
+        advantage=jnp.asarray([adv], jnp.float32),
+        center_err=jnp.asarray([err], jnp.float32))
+    gsp = JParams(root_noise_enabled=False).to_arr()
+    for name, mir in (("m_on", marr), ("m_off", None)):
+        r = jax.jit(lambda r_, k: JM.run_search(
+            apply, None, r_, gsp, k, size=MIRROR_SIZE,
+            num_sims=MIRROR_VISITS, max_nodes=MIRROR_VISITS + 3,
+            max_visits=MIRROR_VISITS + 1, with_ladders=False, mirror=mir))(
+                gs, jax.random.PRNGKey(1))
+        arrays.update(_result_arrays(r, f"{name}/"))
+    save("search_extras", arrays, {
+        "size": size, "visits": visits, "max_nodes": visits + 3,
+        "max_visits": visits + 1, "moves": SEARCH_MOVES,
+        "weights": f"weights_b1c6_s{WEIGHT_SEED}",
+        "params": "for_selfplay, root noise off", "with_ladders": True,
+        "root_num_symmetries": EXTRAS_SYMS, "key": 5,
+        "mask": "extras_mask(size)", "mirror": {
+            "size": MIRROR_SIZE, "visits": MIRROR_VISITS,
+            "max_visits": MIRROR_VISITS + 1, "model": BIN_B1C6.name,
+            "params": "SearchParams(root_noise_enabled=False)",
+            "with_ladders": False, "history": "mirror_history(9, 15)",
+            "detect": [bool(mirroring), float(adv), float(err)]}})
+
+
+def _gtp_transcript(script: str, main_args=None) -> str:
+    import io
+    from katago_tpu.cli import gtp as JGTP
+    out = io.StringIO()
+    if main_args is None:
+        eng = JGTP.GTPEngine(model_path=str(BIN_B1C6), size=9,
+                             visits=C.GTP_VISITS)
+        JGTP.run_gtp(eng, io.StringIO(script), out)
+    else:
+        # main() runs run_gtp(engine) on the process's stdin and stdout
+        run = JGTP.run_gtp
+        JGTP.run_gtp = lambda eng: run(eng, io.StringIO(script), out)
+        try:
+            JGTP.main(main_args)
+        finally:
+            JGTP.run_gtp = run
+    return out.getvalue()
+
+
+def make_gtp():
+    t0 = time.time()
+    main_out = ""
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Path(tmp) / "gtp.cfg"
+        cfg.write_text(C.GTP_CONFIG)
+        main_out = _gtp_transcript(
+            C.GTP_MAIN_SCRIPT, ["-model", str(BIN_B1C6), "-config",
+                                str(cfg), "-boardsize", "9"])
+    print(f"  main session: {time.time() - t0:.1f} s", flush=True)
+    out = _gtp_transcript(C.GTP_SCRIPT)
+    save("gtp", {"transcript": np.array(out),
+                 "main_transcript": np.array(main_out)}, {
+        "model": BIN_B1C6.name, "size": 9, "visits": C.GTP_VISITS,
+        "script": "tests.test_torch_common.GTP_SCRIPT",
+        "main": "GTP_MAIN_SCRIPT through gtp.main with GTP_CONFIG"})
+
+
+def make_analysis():
+    import io
+    from katago_tpu.cli import analysis as JAN
+    outs = {}
+    for name, script in C.ANALYSIS_SCRIPTS.items():
+        eng = JAN.AnalysisEngine(str(BIN_B1C6))
+        out = io.StringIO()
+        JAN.run_protocol(eng, io.StringIO(script), out)
+        outs[name] = np.array(out.getvalue())
+    save("analysis", outs, {"model": BIN_B1C6.name,
+                            "scripts": "tests.test_torch_common."
+                            "ANALYSIS_SCRIPTS"})
+
+
 MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "chase": make_chase, "ladder_exact": make_ladder_exact,
           "selfplay": make_selfplay, "resign": make_resign,
@@ -704,7 +885,9 @@ MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "handicap": make_handicap,
           "npz_schema": make_schema, "train_losses": make_train_losses,
           "train": make_train, "train_muon": make_train_muon,
-          "train_resume": make_train_resume}
+          "train_resume": make_train_resume, "desc": make_desc,
+          "search_extras": make_search_extras, "gtp": make_gtp,
+          "analysis": make_analysis}
 
 
 def main() -> int:
