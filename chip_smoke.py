@@ -52,7 +52,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      second session through gtp.main with a config file that sets
      rootNumSymmetriesToSample = 4): every response "=", every move
      legal, both kernels launched, kata-raw-nn equal on the CPU within
-     DESC_RTOL; prints load, forward, playout and command times and the
+     RAW_NN_ATOL; prints load, forward, playout and command times and the
      launches per genmove; then both kernels timed at the one-game shape;
  10. the analysis engine (`run_analysis_phase`) on the same file:
      run_protocol on 4 queries at ANALYSIS_VISITS (a 3-turn analyzeTurns
@@ -60,9 +60,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and the first query again, which must hit the tree cache and run no
      playouts): every final response has rootInfo and moveInfos and root
      visits maxVisits; prints seconds per query;
- 11. report: the card's name and power limit, each kernel's time beside
+ 11. humanSL serving (`run_humansl_phase`): b18c384nbt with the metadata
+     encoder (the public b18c384nbt-humanv0's shape), seeded, exported
+     to .bin.gz by the port and served by the GTP engine (desc.load_model,
+     DescNet float32) with humanSLProfile = rank_5d: genmoves at
+     GTP_VISITS, kata-raw-human-nn equal on the card and the CPU within
+     RAW_NN_ATOL, a genmove with avoidRepeatedPatternUtility (the pattern
+     table probed in the tree), one playout at one game timed, and one
+     get_model_outputs of humanslnet_server; both kernels launched;
+ 12. the transformer family (`run_transformer_phase`) at
+     b5c384h6nbttfgabs: forward in bf16 at batch 128; play_games in bf16
+     on 128 games with ladders and tree reuse at SP_VISITS for TF_MOVES
+     moves, each a full recorded search (the shard in the pinned schema,
+     both kernels launched);
+     run_training on that shard in float32 at batch 256 (one warm-up
+     step, TF_TRAIN_STEPS timed), losses finite, peak memory; one SGD
+     step of a small nbttf-GAB net with QK-norm GQA and an intermediate
+     head on the card and the CPU within CHECK_LOSS_RTOL /
+     CHECK_UPDATE_REL;
+ 13. the other families (`run_families_phase`): b28c512nbt in bf16,
+     forward at batch 128 and a 128-game search at B28_VISITS visits with
+     ladders on (both kernels launched); b7c96h3tfrs exported as a v17
+     .bin.gz, loaded by DescNet, kata-raw-nn equal on the card and the
+     CPU within RAW_NN_ATOL;
+ 14. report: the card's name and power limit, each kernel's time beside
      its plain version's and its bound, launches per search, per
-     selfplay move, per GTP session and per analysis session,
+     selfplay move, per GTP session, per analysis session, per humanSL
+     genmove, per transformer selfplay move and per b28c512nbt search,
      playouts/s, a `kernels` JSON line, and the result line last.
 
 A kernel's time ("device-only") is that of N launches captured in one
@@ -120,8 +144,29 @@ P8_MOVES = 2
 GTP_VISITS = 64             # phase 9's genmoves (the time limit)
 ANALYSIS_VISITS = 32        # phase 10's queries
 DESC_POSITIONS = 8
-DESC_RTOL = 1e-3            # DescNet vs KataGoModel; card vs CPU raw nn
+DESC_RTOL = 1e-3            # DescNet vs KataGoModel, relative per key
+RAW_NN_ATOL = 1e-5          # card vs CPU raw nn: ten quanta of its %.6f
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 peak outside the tensor cores
+HUMANSL_PROFILE = "rank_5d"  # phase 11: b18c384nbt + the metadata encoder
+PATTERN_UTILITY = 0.3        # phase 11's avoidRepeatedPatternUtility genmove
+TF_MODEL = "b5c384h6nbttfgabs"   # phase 12: the largest transformer preset
+TF_MOVES = 3                 # phase 12's selfplay moves (the time limit)
+TF_TRAIN_STEPS = 3           # phase 12's timed train steps (after one warm-up)
+# phase 12's card-vs-CPU step: a small nbttf-GAB net with QK-norm GQA and a
+# mid-trunk intermediate head (ModelConfig fields over TF_MODEL's)
+TF_CHECK_FIELDS = dict(
+    name="nbttf-gab-check", trunk_num_channels=32, mid_num_channels=16,
+    gpool_num_channels=8, transformer_ffn_channels=32, transformer_heads=2,
+    transformer_kv_heads=1, attention_qk_norm=True, gab_num_templates=8,
+    gab_num_fourier_features=4, gab_mlp_hidden=16, gab_d1=8, gab_d2=8,
+    has_intermediate_head=True, intermediate_head_blocks=1,
+    block_kind=("bottlenest2transformergabsg", "regulargpool", "attnrope",
+                "ffnsg"),
+    p1_num_channels=8, g1_num_channels=8, v1_num_channels=8, v2_size=16,
+    sbv2_num_channels=16, num_scorebeliefs=2)
+B28_MODEL = "b28c512nbt"     # phase 13: the kata1 main-run shape
+B28_VISITS = 32              # phase 13's search (a few dozen visits)
+V17_MODEL = "b7c96h3tfrs"    # phase 13: exported as v17, served by DescNet
 REF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_ref"
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -275,7 +320,9 @@ def check_exact_ladders(dev) -> None:
         f"({len(meta['sets'])} sets)")
 
 
-def run_selfplay_phase(model, gen, dev, work: Path) -> dict:
+def run_selfplay_phase(model, gen, dev, work: Path, moves: int = SP_MOVES,
+                       tdata_name: str = "tdata", tag: str = "selfplay",
+                       play_settings=None) -> dict:
     """Selfplay at the production shape: play_games at 19x19 with the
     b18c384nbt net in bf16, 128 games, SearchParams.for_selfplay(),
     PlaySettings.for_selfplay() (policy-init openings, cheap/full
@@ -288,7 +335,8 @@ def run_selfplay_phase(model, gen, dev, work: Path) -> dict:
     keys, dtypes and per-row shapes equal the schema pinned by the CPU
     fixture, rows > 0, policy targets sum to 1, every float is finite,
     and both kernels were launched during the games. Returns the phase's
-    numbers."""
+    numbers. moves, tdata_name, tag and play_settings: another path's
+    cut, shard directory, log label and PlaySettings (phase 12)."""
     import numpy as np
 
     from katago_torch.cli.selfplay_cmd import game_records
@@ -307,30 +355,31 @@ def run_selfplay_phase(model, gen, dev, work: Path) -> dict:
     t0 = time.time()
     data, stats = play_games(
         model, size=SIZE, num_games=GAMES, visits=SP_VISITS,
-        search_params=SearchParams.for_selfplay(), max_moves=SP_MOVES,
+        search_params=SearchParams.for_selfplay(), max_moves=moves,
         gen=gen, device=dev, tree_reuse=True,
-        play_settings=PlaySettings.for_selfplay(), ladder_mode="chase",
+        play_settings=play_settings or PlaySettings.for_selfplay(),
+        ladder_mode="chase",
         timings=timings)
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = {"chase_lanes": K1.launches, "connected_labels": K2.launches}
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"{name} was not launched by selfplay")
+            raise AssertionError(f"{name} was not launched by {tag}")
     rows = data.spatial.shape[0]
     if rows == 0:
-        raise AssertionError("selfplay recorded no rows")
+        raise AssertionError(f"{tag} recorded no rows")
     pol_sum = data.policy_target.sum(1)
     if not np.allclose(pol_sum, 1.0, atol=1e-5):
         raise AssertionError(f"policy targets sum to {pol_sum.min()}.."
                              f"{pol_sum.max()}, not 1")
     arrays = data.to_npz_arrays(SIZE, stats["white_minus_black"],
                                 komi_white=stats["komi_white"])
-    tdata = work / "tdata"
+    tdata = work / tdata_name
     tdata.mkdir(parents=True)
     shard = tdata / f"batch000000_{SEED}_s{SIZE}.npz"
     np.savez_compressed(shard, **arrays)
-    sgfs = work / f"batch000000_{SEED}.sgfs"
+    sgfs = work / f"{tdata_name}_batch000000_{SEED}.sgfs"
     sgfs.write_text("\n".join(game_records(data, stats, SIZE, GAMES,
                                             None)) + "\n")
     npz_bytes, sgf_bytes = shard.stat().st_size, sgfs.stat().st_size
@@ -363,26 +412,26 @@ def run_selfplay_phase(model, gen, dev, work: Path) -> dict:
                timings.get("features_s", 0.0) / max(rec, 1),
            "ladder": lad,
            "ladder_ms_per_call": lad["seconds"] / lad["calls"] * 1e3}
-    log(f"phase selfplay: {GAMES} games x {moves} moves ({rec} recorded) "
+    log(f"phase {tag}: {GAMES} games x {moves} moves ({rec} recorded) "
         f"at {SP_VISITS} visits in {dt:.2f} s; {stats['total_playouts']} "
         f"playouts ({out['playouts_per_s']:.1f} playouts/s); {rows} rows, "
         f"npz {npz_bytes} B, sgfs {sgf_bytes} B; launches {launches} "
         f"({launches['chase_lanes'] / moves:.1f} K1 and "
         f"{launches['connected_labels'] / moves:.1f} K2 per move)")
-    log(f"selfplay s/move: search {out['s_per_move']['search']:.3f}, move "
+    log(f"{tag} s/move: search {out['s_per_move']['search']:.3f}, move "
         f"choice {out['s_per_move']['choose']:.3f}, board step "
         f"{out['s_per_move']['step']:.3f}; row featurization "
         f"{out['features_s_per_recorded_move']:.3f} s per recorded move")
-    log(f"selfplay exact ladders: {lad['calls']} ladder_map_batch calls, "
+    log(f"{tag} exact ladders: {lad['calls']} ladder_map_batch calls, "
         f"{out['ladder_ms_per_call']:.1f} host ms per call, {lad['lanes']} "
         f"lanes, longest lane {lad['max_lane_iters']} iterations, "
         f"{lad['lockstep_iters']} lockstep iterations, unfinished "
         f"{lad['unfinished_lanes']}, depth hits {lad['depth_hits']}")
-    log("selfplay json " + json.dumps(
+    log(f"{tag} json " + json.dumps(
         dict(out, ladder={k: v for k, v in lad.items()
                           if k != "longest_lane"})))
     if "longest_lane" in lad:
-        log("selfplay longest exact lane " + json.dumps(
+        log(f"{tag} longest exact lane " + json.dumps(
             lad["longest_lane"]))
     return out
 
@@ -395,8 +444,9 @@ def smi_query(fields: str) -> str:
 
 def forward_flops(model, size: int, batch: int, dev) -> float:
     """Multiply-add FLOPs (2 per MAC) of one forward of model at batch,
-    reckoned from the shapes its convolutions and dense layers see (one
-    forward at batch 1, scaled: every layer is linear in the batch)."""
+    reckoned from the shapes its convolutions, dense layers and attention
+    matmuls see (one forward at batch 1, scaled: every layer is linear in
+    the batch)."""
     from katago_torch.models import model as M
     flops = [0.0]
 
@@ -407,10 +457,17 @@ def forward_flops(model, size: int, batch: int, dev) -> float:
     def dense_hook(mod, args, out):
         flops[0] += 2.0 * out.numel() * mod.kernel.shape[1]
 
+    def attention_hook(mod, args, out):
+        b, c, h, w = out.shape      # QK^T and attention x V
+        flops[0] += 2.0 * 2.0 * b * mod.nh * (h * w) ** 2 * mod.qd
+
     hooks = [m.register_forward_hook(conv_hook if isinstance(m, M.ConvCore)
                                      else dense_hook)
              for m in model.modules()
              if isinstance(m, (M.ConvCore, M.Dense))]
+    hooks += [m.register_forward_hook(attention_hook)
+              for m in model.modules()
+              if isinstance(m, M.TransformerAttentionBlock)]
     spatial = torch.ones((1, size, size, 22), device=dev)
     with torch.no_grad():
         model(spatial, torch.zeros((1, 19), device=dev))
@@ -419,9 +476,10 @@ def forward_flops(model, size: int, batch: int, dev) -> float:
     return flops[0] * batch
 
 
-def check_step_card_vs_cpu(shard: Path, dev) -> dict:
-    """One SGD step of CHECK_MODEL (float32, TF32 off) at CHECK_BATCH rows
-    of the shard, on the card and on the CPU from the same weights: every
+def check_step_card_vs_cpu(shard: Path, dev, cfg=None) -> dict:
+    """One SGD step of CHECK_MODEL (or the ModelConfig cfg; float32, TF32
+    off) at CHECK_BATCH rows of the shard, on the card and on the CPU
+    from the same weights: every
     loss term and gnorm within CHECK_LOSS_RTOL, each tensor's update (new
     minus old params) within CHECK_UPDATE_REL of its largest entry plus
     1e-6 of the largest update of the net (the floor covers tensors whose
@@ -431,6 +489,8 @@ def check_step_card_vs_cpu(shard: Path, dev) -> dict:
     the worst error as a fraction of its limit."""
     from katago_torch.cli.train_cmd import make_model
     from katago_torch.dataio import trainingwrite as TW
+    from katago_torch.models import model as M
+    from katago_torch.models import weights as W
     from katago_torch.train import train_step as TS
 
     rows = {k: torch.from_numpy(v[:CHECK_BATCH])
@@ -438,7 +498,11 @@ def check_step_card_vs_cpu(shard: Path, dev) -> dict:
     out = {}
     for where in ("card", "cpu"):
         d = dev if where == "card" else torch.device("cpu")
-        model = make_model(SIZE, CHECK_MODEL, d, seed=SEED)
+        if cfg is None:
+            model = make_model(SIZE, CHECK_MODEL, d, seed=SEED)
+        else:
+            model = W.init_weights(M.KataGoModel(cfg, SIZE, torch.float32),
+                                   seed=SEED).to(d)
         params = {k: v.detach() for k, v in model.named_parameters()}
         opt = TS.make_optimizer(lr=0.01, kind="sgd")
         state = TS.init_train_state(params, opt)
@@ -833,7 +897,7 @@ def run_gtp_phase(bin_gz: str, dev, work: Path) -> dict:
     if len(a) != len(b) or len(a) != 3 + SIZE * SIZE + 1:
         raise AssertionError(f"kata-raw-nn gave {len(a)} / {len(b)} numbers")
     raw_err = float(np.abs(np.array(a) - np.array(b)).max())
-    if raw_err > DESC_RTOL:
+    if raw_err > RAW_NN_ATOL:
         raise AssertionError(f"kata-raw-nn card vs CPU differ by {raw_err}")
     del cpu
 
@@ -1043,6 +1107,408 @@ def run_analysis_phase(bin_gz: str, dev) -> dict:
         f"cache hits; launches {launches}")
     log("analysis json " + json.dumps(res))
     return res
+
+
+def _kernel_counts() -> dict:
+    from katago_torch.ops import chase as K1
+    from katago_torch.ops import labels as K2
+    return {"chase_lanes": K1.launches, "connected_labels": K2.launches}
+
+
+def _reset_kernel_counts() -> None:
+    from katago_torch.ops import chase as K1
+    from katago_torch.ops import labels as K2
+    K1.reset_launches()
+    K2.reset_launches()
+
+
+def _need_launches(launches: dict, what: str) -> None:
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{k} was not launched in {what}")
+
+
+def _export(model, cfg, path: Path) -> float:
+    """The port's exporter on model's weights; returns the seconds."""
+    from katago_torch.models.export import export_model
+    from katago_torch.models.weights import to_flax_params
+    t0 = time.time()
+    export_model(to_flax_params(model.state_dict()), cfg, str(path),
+                 name=path.name.split(".")[0])
+    return time.time() - t0
+
+
+def run_humansl_phase(dev, work: Path) -> dict:
+    """Phase 11: humanSL serving. b18c384nbt with the metadata encoder
+    (the shape of the public b18c384nbt-humanv0), seeded, exported by the
+    port to .bin.gz and served by the GTP engine through desc.load_model
+    and DescNet (float32) with humanSLProfile = HUMANSL_PROFILE: plays,
+    genmoves at GTP_VISITS, kata-raw-human-nn (card vs CPU within
+    RAW_NN_ATOL, and unlike the unconditioned kata-raw-nn), then a genmove
+    with avoidRepeatedPatternUtility so the pattern table is probed in
+    the tree; one playout at one game timed on a fresh search; then one
+    get_model_outputs of humanslnet_server on the same file."""
+    import dataclasses
+    import io
+
+    import numpy as np
+
+    from katago_torch.cli import gtp as G
+    from katago_torch.cli import humanslnet_server as SRV
+    from katago_torch.game import history as H
+    from katago_torch.models import config as MC
+    from katago_torch.models import model as M
+    from katago_torch.models import weights as W
+    from katago_torch.search import patternbonus as PB
+
+    cfg = dataclasses.replace(MC.get_config(MODEL), metadata_encoder=True)
+    model = W.init_weights(M.KataGoModel(cfg, SIZE, torch.float32),
+                           seed=SEED + 11)
+    bin_gz = work / "humansl-b18c384nbt.bin.gz"
+    export_s = _export(model, cfg, bin_gz)
+    del model
+
+    def ok(blocks, what):
+        bad = [b for b in blocks if not b.startswith("=")]
+        if bad:
+            raise AssertionError(f"GTP {what}: {bad}")
+
+    _reset_kernel_counts()
+    t0 = time.time()
+    eng = G.GTPEngine(model_path=str(bin_gz), size=SIZE, visits=GTP_VISITS,
+                      device=dev, seed=SEED,
+                      human_sl_profile=HUMANSL_PROFILE)
+    engine_s = time.time() - t0
+    if eng.desc.trunk["meta_encoder"] is None or eng.sgf_meta is None:
+        raise AssertionError("the humanSL net or profile is not loaded")
+    s = _stars()
+    ok(_gtp(eng, [f"boardsize {SIZE}", "komi 7.5", "clear_board",
+                  f"play b {s[0]}", f"play w {s[1]}", f"play b {s[2]}",
+                  f"play w {s[3]}"]), "opening")
+    genmoves = []
+
+    def genmove(color):
+        pla = 1 if color == "b" else 2
+        legal = H.legal_moves(H.replace_pos(eng.gs, to_move=eng._one(pla)),
+                              SIZE)[0].cpu().numpy()
+        c0 = _kernel_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        blocks = _gtp(eng, [f"genmove {color}"])
+        torch.cuda.synchronize()
+        dt = time.time() - t
+        ok(blocks, f"genmove {color}")
+        loc = G.gtp_to_loc(blocks[0][2:], SIZE)
+        if not legal[loc]:
+            raise AssertionError(f"genmove {color} chose illegal {loc}")
+        c1 = _kernel_counts()
+        genmoves.append({"color": color, "seconds": dt,
+                         "move": blocks[0][2:],
+                         "visits": int(eng.last_search_result.root_visits[0]),
+                         "launches": {k: c1[k] - c0[k] for k in c1}})
+
+    genmove("b")
+    genmove("w")
+    t = time.time()
+    human = _gtp(eng, ["kata-raw-human-nn"])
+    torch.cuda.synchronize()
+    raw_s = time.time() - t
+    plain = _gtp(eng, ["kata-raw-nn"])
+    ok(human + plain, "kata-raw-human-nn / kata-raw-nn")
+    a = _raw_nn_numbers(human[0][1:])
+    if a == _raw_nn_numbers(plain[0][1:]):
+        raise AssertionError("kata-raw-human-nn equals the unconditioned "
+                             "kata-raw-nn")
+    cpu = G.GTPEngine(model_path=str(bin_gz), size=SIZE, visits=GTP_VISITS,
+                      device="cpu", seed=SEED,
+                      human_sl_profile=HUMANSL_PROFILE)
+    for player, loc in eng.moves:
+        cpu.play(player, loc)
+    b = _raw_nn_numbers(cpu.raw_nn(use_human_profile=True))
+    del cpu
+    if len(a) != len(b) or len(a) != 3 + SIZE * SIZE + 1:
+        raise AssertionError(f"kata-raw-human-nn gave {len(a)} / {len(b)} "
+                             "numbers")
+    raw_err = float(np.abs(np.array(a) - np.array(b)).max())
+    if raw_err > RAW_NN_ATOL:
+        raise AssertionError(f"kata-raw-human-nn card vs CPU differ by "
+                             f"{raw_err}")
+
+    # a genmove that avoids the mover's own shapes: the pattern table is
+    # built from the game and probed at every expansion
+    eng.search_params = dataclasses.replace(
+        eng.search_params, avoid_repeated_pattern_utility=PATTERN_UTILITY)
+    pla = eng.to_move()
+    table = eng._pattern_bonus_arrs(pla)
+    if table is None:
+        raise AssertionError("no pattern-bonus table for the mover")
+    probes = [0]
+    lookup = PB.lookup
+
+    def counted(*args, **kw):
+        probes[0] += 1
+        return lookup(*args, **kw)
+    PB.lookup = counted
+    try:
+        genmove("b" if pla == 1 else "w")
+    finally:
+        PB.lookup = lookup
+    if probes[0] == 0:
+        raise AssertionError("the pattern table was not probed")
+
+    drv = eng._get_driver()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t = time.time()
+    res = drv.search(eng.gs, gen, max_visits=GTP_VISITS)
+    torch.cuda.synchronize()
+    playout_ms = (time.time() - t) / (int(res.root_visits[0]) - 1) * 1e3
+    launches = _kernel_counts()
+    _need_launches(launches, "phase 11")
+    del eng, drv, res
+
+    script = "\n".join(json.dumps(q) for q in [
+        {"command": "start", "board_x_size": SIZE, "board_y_size": SIZE},
+        {"command": "play", "pla": 1, "loc": G.gtp_to_loc(s[0], SIZE)},
+        {"command": "get_model_outputs", "sgfmeta": {
+            "inverseBRank": 5, "inverseWRank": 5, "bIsHuman": True,
+            "wIsHuman": True, "tcIsByoYomi": True, "source": 2}}]) + "\n"
+    out = io.StringIO()
+    t = time.time()
+    SRV.main(["-model", str(bin_gz), "-device", str(dev)],
+             io.StringIO(script), out)
+    server_s = time.time() - t
+    resp = [json.loads(x) for x in out.getvalue().splitlines()]
+    got = resp[-1].get("outputs")
+    if not isinstance(got, dict) or not got["moves_and_probs0"]:
+        raise AssertionError(f"humanslnet_server answered {resp[-1]}")
+    probs = [p for _, p in got["moves_and_probs0"]]
+    if not all(math.isfinite(p) and 0.0 < p <= 1.0 for p in probs) or \
+            sum(probs) > 1.0 + 1e-4 or abs(sum(got["value"]) - 1.0) > 1e-4:
+        raise AssertionError(f"humanslnet_server outputs are off: {got}")
+    gm = genmoves[:2]
+    per = {k: sum(g["launches"][k] for g in gm) / len(gm) for k in launches}
+    res = {"export_s": export_s, "bin_gz_bytes": bin_gz.stat().st_size,
+           "engine_s": engine_s, "genmoves": genmoves,
+           "genmove_s": [g["seconds"] for g in genmoves],
+           "raw_human_nn_s": raw_s, "raw_human_nn_cpu_max_abs_err": raw_err,
+           "pattern_table_keys": int((table.bonus != 0).sum()),
+           "pattern_probes": probes[0], "playout_ms": playout_ms,
+           "server_s": server_s, "server_moves": len(probs),
+           "launches": launches, "launches_per_genmove": per}
+    log(f"phase humansl: {MODEL} + metadata encoder exported "
+        f"({res['bin_gz_bytes']} B in {export_s:.1f} s), loaded in "
+        f"{engine_s:.2f} s with humanSLProfile {HUMANSL_PROFILE}; genmove s "
+        f"{[round(x, 3) for x in res['genmove_s']]} at {GTP_VISITS} visits "
+        f"(the last with avoidRepeatedPatternUtility {PATTERN_UTILITY}: "
+        f"{res['pattern_table_keys']} keys, {probes[0]} probe calls); "
+        f"{playout_ms:.1f} ms per playout at one game; kata-raw-human-nn "
+        f"{raw_s:.2f} s (card vs CPU {raw_err:.2e}); humanslnet_server "
+        f"{server_s:.2f} s ({len(probs)} moves); launches {launches}, per "
+        f"genmove {per}")
+    log("humansl json " + json.dumps(res))
+    return res
+
+
+def run_transformer_phase(dev, work: Path) -> dict:
+    """Phase 12: the transformer family at TF_MODEL (trunk 384, mid 192,
+    6 heads, FFN 512, five GAB blocks): its forward in bf16 at batch
+    GAMES; play_games in bf16 on GAMES 19x19 games with ladders and tree
+    reuse at SP_VISITS for TF_MOVES moves, every one a full recorded
+    search (run_selfplay_phase: the shard in the pinned schema, both
+    kernels launched); run_training on that
+    shard in float32 at batch TRAIN_BATCH, one warm-up step and
+    TF_TRAIN_STEPS resumed and timed, every loss finite; then one SGD
+    step of the small nbttf-GAB net of TF_CHECK_FIELDS (QK-norm GQA, an
+    intermediate head) on the card and the CPU."""
+    import dataclasses
+
+    from katago_torch.cli import train_cmd as TCMD
+    from katago_torch.models import config as MC
+    from katago_torch.models import model as M
+    from katago_torch.models import weights as W
+    from katago_torch.selfplay.playsettings import PlaySettings
+
+    cfg = MC.get_config(TF_MODEL)
+    model = W.init_weights(M.KataGoModel(cfg, SIZE, torch.bfloat16),
+                           seed=SEED).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    spatial = (torch.rand((GAMES, SIZE, SIZE, 22), generator=gen,
+                          device=dev) < 0.2).float()
+    spatial[..., 0] = 1.0
+    glob = torch.randn((GAMES, 19), generator=gen, device=dev)
+    with torch.no_grad():
+        out = model(spatial, glob)
+        fwd_ms = event_ms(lambda: model(spatial, glob), 10)
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{TF_MODEL} output {k} is not finite")
+    fwd_flops = forward_flops(model, SIZE, GAMES, dev)
+    # every move a full, recorded search (no cheap searches), so the few
+    # moves give the trainer rows
+    ps = dataclasses.replace(PlaySettings.for_selfplay(),
+                             cheap_search_prob=0.0)
+    sp_out = run_selfplay_phase(model, gen, dev, work, moves=TF_MOVES,
+                                tdata_name="tdata_tf",
+                                tag="transformer selfplay", play_settings=ps)
+    del model, out
+    torch.cuda.empty_cache()
+
+    data = work / "tdata_tf"
+    lines = []
+    common = dict(size=SIZE, config_name=TF_MODEL, batch_size=TRAIN_BATCH,
+                  lr=TRAIN_LR, seed=SEED, device=dev, log=lines.append)
+
+    def finite(o, what):
+        for i, m in enumerate(o["metrics"]):
+            bad = [k for k, v in m.items() if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{what} step {i}: {bad} not finite")
+
+    warm = TCMD.run_training(str(data), str(work / "ckpt_tf"), None,
+                             steps=1, **common)
+    finite(warm, "transformer warm-up")
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr = TCMD.run_training(str(data), str(work / "ckpt_tf"), None,
+                           steps=TF_TRAIN_STEPS, timings=timings, **common)
+    run_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    finite(tr, "transformer")
+    if tr["steps"] != TF_TRAIN_STEPS:
+        raise AssertionError(f"trained {tr['steps']} transformer steps")
+    ms = {k: timings[k] / TF_TRAIN_STEPS * 1e3
+          for k in ("data_s", "h2d_s", "fwd_bwd_s", "opt_s")}
+    step_ms = sum(ms.values())
+    train_flops = 3.0 * fwd_flops / GAMES * TRAIN_BATCH
+
+    check_cfg = dataclasses.replace(cfg, **TF_CHECK_FIELDS)
+    t0 = time.time()
+    check = check_step_card_vs_cpu(next(data.glob("*.npz")), dev, check_cfg)
+    check_s = time.time() - t0
+    res = {"model": TF_MODEL, "forward_ms_batch": fwd_ms,
+           "forward_flops_batch": fwd_flops, "selfplay": sp_out,
+           "train_ms_per_step": ms, "train_step_ms": step_ms,
+           "train_rows_per_s": TRAIN_BATCH / step_ms * 1e3,
+           "train_peak_mem_bytes": peak, "train_run_s": run_s,
+           "train_flops_per_step": train_flops,
+           "fwd_bwd_tflops": train_flops / (ms["fwd_bwd_s"] / 1e3) / 1e12,
+           "losses": [m["loss"] for m in tr["metrics"]],
+           "card_vs_cpu": check, "card_vs_cpu_s": check_s}
+    log(f"phase transformer: {TF_MODEL} bf16 forward at batch {GAMES} "
+        f"{fwd_ms:.3f} ms ({fwd_flops / 1e12:.3f} TFLOP from the shapes); "
+        f"selfplay {sp_out['playouts_per_s']:.1f} playouts/s, "
+        f"{sp_out['launches']['chase_lanes'] / sp_out['moves']:.1f} K1 and "
+        f"{sp_out['launches']['connected_labels'] / sp_out['moves']:.1f} K2 "
+        f"launches per move; train float32 batch {TRAIN_BATCH}, ms per "
+        f"step: data {ms['data_s']:.2f}, host-to-device {ms['h2d_s']:.2f}, "
+        f"forward+backward {ms['fwd_bwd_s']:.2f}, optimizer+EMA "
+        f"{ms['opt_s']:.2f} (sum {step_ms:.2f}); "
+        f"{res['fwd_bwd_tflops']:.2f} TFLOP/s in the forward+backward; "
+        f"peak device memory {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in res['losses']]}; card vs CPU "
+        f"({check_cfg.name}, batch {CHECK_BATCH}): loss terms within "
+        f"{check['loss_max_rel_err']:.2e} (limit {CHECK_LOSS_RTOL}), "
+        f"updates within {check['update_max_rel_err']:.2e} (limit "
+        f"{CHECK_UPDATE_REL}; worst {check['update_worst_of_limit']:.3f} of "
+        "its limit)")
+    log("transformer json " + json.dumps(res))
+    return res
+
+
+def run_families_phase(dev, work: Path) -> dict:
+    """Phase 13: B28_MODEL (the kata1 main-run shape) in bf16: forward at
+    batch GAMES, and a SearchDriver search of GAMES games at B28_VISITS
+    visits with ladders on (both kernels launched, every game at its
+    visits); then V17_MODEL exported as a version-17 .bin.gz, loaded by
+    desc.load_model and DescNet, and its kata-raw-nn equal on the card
+    and the CPU within RAW_NN_ATOL."""
+    import numpy as np
+
+    from katago_torch.cli import gtp as G
+    from katago_torch.game import history as H
+    from katago_torch.game import rules as R
+    from katago_torch.models import config as MC
+    from katago_torch.models import model as M
+    from katago_torch.models import weights as W
+    from katago_torch.search.driver import SearchDriver
+    from katago_torch.search.params import SearchParams
+
+    model = W.init_weights(M.KataGoModel(MC.get_config(B28_MODEL), SIZE,
+                                         torch.bfloat16),
+                           seed=SEED).to(dev).eval()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    spatial = (torch.rand((GAMES, SIZE, SIZE, 22), generator=gen,
+                          device=dev) < 0.2).float()
+    spatial[..., 0] = 1.0
+    glob = torch.randn((GAMES, 19), generator=gen, device=dev)
+    with torch.no_grad():
+        fwd_ms = event_ms(lambda: model(spatial, glob), 10)
+    sp = SearchParams.for_selfplay().to_arr(dev)
+    driver = SearchDriver(model, sp, size=SIZE, max_nodes=B28_VISITS + 3,
+                          chunk_size=B28_VISITS, with_ladders=True,
+                          device=dev)
+    roots = H.new_game(SIZE, R.Rules.tromp_taylorish(), 160, g=GAMES,
+                       device=dev)
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = driver.search(roots, gen, max_visits=B28_VISITS + 1)
+    torch.cuda.synchronize()
+    search_s = time.time() - t0
+    launches = _kernel_counts()
+    _need_launches(launches, f"the {B28_MODEL} search")
+    if not bool((res.root_visits == B28_VISITS + 1).all()):
+        raise AssertionError(f"{B28_MODEL} root visits "
+                             f"{int(res.root_visits.min())}.."
+                             f"{int(res.root_visits.max())}")
+    for k in ("root_winloss", "root_utility", "root_ownership"):
+        if not torch.isfinite(getattr(res, k)).all():
+            raise AssertionError(f"{B28_MODEL} search {k} is not finite")
+    del model, driver, res
+    torch.cuda.empty_cache()
+
+    cfg = MC.get_config(V17_MODEL)
+    v17 = W.init_weights(M.KataGoModel(cfg, SIZE, torch.float32), seed=SEED)
+    bin_gz = work / f"{V17_MODEL}.bin.gz"
+    _export(v17, cfg, bin_gz)
+    del v17
+    engines = {}
+    for where in (dev, "cpu"):
+        eng = G.GTPEngine(model_path=str(bin_gz), size=SIZE, visits=8,
+                          device=where, seed=SEED)
+        for color, v in zip("bwb", _stars()):
+            eng.play(1 if color == "b" else 2, G.gtp_to_loc(v, SIZE))
+        engines[str(where)] = eng
+    eng = engines[str(dev)]
+    kinds = [b["kind"] for b in eng.desc.trunk["blocks"]]
+    if eng.desc.version != 17 or kinds != ["attention", "ffn"] * 7:
+        raise AssertionError(f"{V17_MODEL} exported as version "
+                             f"{eng.desc.version} with blocks {kinds}")
+    t = time.time()
+    a = _raw_nn_numbers(eng.raw_nn())
+    torch.cuda.synchronize()
+    raw_s = time.time() - t
+    b = _raw_nn_numbers(engines["cpu"].raw_nn())
+    if len(a) != len(b) or len(a) != 3 + SIZE * SIZE + 1:
+        raise AssertionError(f"{V17_MODEL} kata-raw-nn gave {len(a)} / "
+                             f"{len(b)} numbers")
+    raw_err = float(np.abs(np.array(a) - np.array(b)).max())
+    if raw_err > RAW_NN_ATOL:
+        raise AssertionError(f"{V17_MODEL} kata-raw-nn card vs CPU differ "
+                             f"by {raw_err}")
+    out = {"b28_forward_ms_batch": fwd_ms, "b28_search_s": search_s,
+           "b28_playouts_per_s": GAMES * B28_VISITS / search_s,
+           "b28_launches": launches, "v17_raw_nn_s": raw_s,
+           "v17_raw_nn_cpu_max_abs_err": raw_err}
+    log(f"phase families: {B28_MODEL} bf16 forward at batch {GAMES} "
+        f"{fwd_ms:.3f} ms; search {GAMES} games x {B28_VISITS} visits in "
+        f"{search_s:.2f} s ({out['b28_playouts_per_s']:.1f} playouts/s), "
+        f"launches {launches}; {V17_MODEL} as a v17 .bin.gz through "
+        f"DescNet: kata-raw-nn {raw_s:.2f} s, card vs CPU {raw_err:.2e}")
+    log("families json " + json.dumps(out))
+    return out
 
 
 def main() -> int:
@@ -1271,11 +1737,23 @@ def main() -> int:
         gtp_out = run_gtp_phase(train["bin_gz"], dev, work)
         one = one_game_kernel_times(dev)
         an_out = run_analysis_phase(train["bin_gz"], dev)
+        torch.cuda.empty_cache()
 
-    # ---- 11. report ----
+        # ---- 11-13. humanSL serving, the transformer family, the others
+        hsl = run_humansl_phase(dev, work)
+        torch.cuda.empty_cache()
+        tfo = run_transformer_phase(dev, work)
+        torch.cuda.empty_cache()
+        fam = run_families_phase(dev, work)
+
+    # ---- 14. report ----
     log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} (search 1), "
         f"{sp_out['playouts_per_s']:.1f} (selfplay, {SP_VISITS} visits, "
-        f"tree reuse), {1e3 / gtp_out['playout_ms']:.1f} (one GTP game)")
+        f"tree reuse), {1e3 / gtp_out['playout_ms']:.1f} (one GTP game), "
+        f"{1e3 / hsl['playout_ms']:.1f} (one humanSL GTP game), "
+        f"{tfo['selfplay']['playouts_per_s']:.1f} ({TF_MODEL} selfplay), "
+        f"{fam['b28_playouts_per_s']:.1f} ({B28_MODEL} search, "
+        f"{B28_VISITS} visits)")
     kernels = [
         {"name": "chase_lanes", "route": "cuda",
          "source": "katago_torch/ops/csrc/chase.cu",
@@ -1284,6 +1762,12 @@ def main() -> int:
          "launches_selfplay": sp_out["launches"]["chase_lanes"],
          "launches_gtp": gtp_out["launches"]["chase_lanes"],
          "launches_analysis": an_out["launches"]["chase_lanes"],
+         "launches_humansl_per_genmove":
+             hsl["launches_per_genmove"]["chase_lanes"],
+         "launches_transformer_selfplay_per_move":
+             tfo["selfplay"]["launches"]["chase_lanes"]
+             / tfo["selfplay"]["moves"],
+         "launches_b28_search": fam["b28_launches"]["chase_lanes"],
          "ms_one_game": one["k1_ms"], "plain_ms_one_game": one["k1_plain_ms"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
@@ -1295,6 +1779,12 @@ def main() -> int:
          "launches_selfplay": sp_out["launches"]["connected_labels"],
          "launches_gtp": gtp_out["launches"]["connected_labels"],
          "launches_analysis": an_out["launches"]["connected_labels"],
+         "launches_humansl_per_genmove":
+             hsl["launches_per_genmove"]["connected_labels"],
+         "launches_transformer_selfplay_per_move":
+             tfo["selfplay"]["launches"]["connected_labels"]
+             / tfo["selfplay"]["moves"],
+         "launches_b28_search": fam["b28_launches"]["connected_labels"],
          "ms_one_game": one["k2_ms"], "plain_ms_one_game": one["k2_plain_ms"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,

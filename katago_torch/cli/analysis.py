@@ -18,8 +18,10 @@ Each task is one search of one game on `device` (CUDA unless
 `-device cpu`; with no CUDA and no -device it raises).
 
 Per-query `overrideSettings` maps SearchParams keys through
-utils/setup.apply_overrides. A cross-search tree cache keyed by the
-root's position hash (LRU of 8) warm-starts exact repeats.
+utils/setup.apply_overrides; its `humanSLProfile` conditions a humanSL
+net's evaluations on that profile's metadata row. V3-V6 nets are fed
+their own input features. A cross-search tree cache keyed by the root's
+position hash and the profile (LRU of 8) warm-starts exact repeats.
 """
 
 from __future__ import annotations
@@ -69,11 +71,6 @@ class AnalysisEngine:
         if model_path:
             from katago_torch.models import desc as D
             self.desc = D.load_model(model_path)
-            if self.desc.input_version != 7:
-                raise NotImplementedError(
-                    f"model version {self.desc.version} needs input "
-                    f"features V{self.desc.input_version}; the port has V7 "
-                    "only (ROADMAP M11)")
             self.net = D.DescNet(self.desc).to(self.device).eval()
             self.model_name = self.desc.name
         else:
@@ -82,6 +79,7 @@ class AnalysisEngine:
             self.model_name = "none"
         self.base_params = _default_params()
         self._drivers: dict = {}
+        self._profile_cache: dict = {}
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self._seq = 0
         # cross-search cache: the search tree is the table of prior-search
@@ -91,26 +89,41 @@ class AnalysisEngine:
         # maxVisits, so an exact repeat returns without new playouts).
         # LRU-bounded; cleared by the clear_cache action.
         self.tree_cache_size = 8
-        self._tree_cache: dict = {}   # (hash, size) -> Tree
+        self._tree_cache: dict = {}   # (hash, size, profile) -> Tree
         self._tree_cache_hits = 0
         self._tree_cache_misses = 0
 
+    @property
+    def feature_version(self) -> int:
+        """The net's input-feature version (V3-V6 nets get their own)."""
+        return self.desc.input_version if self.desc is not None else 7
+
     def _sgf_meta(self, profile: str | None):
-        """overrideSettings humanSLProfile: not ported (ROADMAP M11)."""
+        """SGFMetadata of an overrideSettings humanSLProfile (analysis.cpp
+        humanSLProfile; models/sgfmetadata.py profiles)."""
         if not profile:
             return None
-        raise NotImplementedError(
-            "humanSLProfile needs the SGF metadata encoder, which is not "
-            "ported (ROADMAP M11)")
+        if profile not in self._profile_cache:
+            from katago_torch.models.sgfmetadata import get_profile
+            if self.desc is not None and \
+                    self.desc.trunk.get("meta_encoder") is None:
+                raise ValueError(
+                    "humanSLProfile requires a metadata-encoder net")
+            self._profile_cache[profile] = get_profile(profile)
+        return self._profile_cache[profile]
 
-    def _driver(self, size: int, visits: int) -> SearchDriver:
-        d = self._drivers.get(size)
+    def _driver(self, size: int, visits: int, profile: str | None = None
+                ) -> SearchDriver:
+        key = (size, profile)
+        d = self._drivers.get(key)
         if d is None or d.max_nodes < visits + 3:   # bigger budget: rebuild
             d = SearchDriver(
                 self.net, self.base_params.to_arr(self.device), size=size,
                 max_nodes=visits + 3, chunk_size=max(visits // 8, 4),
-                ladder_mode=self.ladder_mode, device=self.device)
-            self._drivers[size] = d
+                ladder_mode=self.ladder_mode,
+                feature_version=self.feature_version,
+                sgf_meta=self._sgf_meta(profile), device=self.device)
+            self._drivers[key] = d
         return d
 
     # -- protocol ----------------------------------------------------------
@@ -343,7 +356,7 @@ class AnalysisEngine:
         rid, turn, state = task["rid"], task["turn"], task["state"]
         size = task["size"]
         visits = task["visits"]
-        self._sgf_meta(task["profile"])
+        meta = self._sgf_meta(task["profile"])
         sp_arr = task["params"].to_arr(self.device)
         mo = task["want_moves_own"] or task["want_moves_own_stdev"]
         sub = split_generator(self.gen)
@@ -356,7 +369,9 @@ class AnalysisEngine:
         cache_key = None
         cached_tree = None
         if mask is None and not mo and self.tree_cache_size > 0:
-            cache_key = (self._position_hashes(state, size)[0], size)
+            # a tree searched under one humanSL profile is not another's
+            cache_key = (self._position_hashes(state, size)[0], size,
+                         task["profile"])
             cached_tree = self._tree_cache.get(cache_key)
             if cached_tree is not None and \
                     cached_tree.visits.shape[1] > visits + 3:
@@ -382,7 +397,7 @@ class AnalysisEngine:
 
         streaming = report_every is not None and emit is not None
         if cached_tree is not None or streaming:
-            res = self._driver(size, visits).search(
+            res = self._driver(size, visits, task["profile"]).search(
                 state, sub, max_visits=visits, prev_tree=cached_tree,
                 root_allowed_mask=mask,
                 callback=cb if streaming else None,
@@ -395,6 +410,7 @@ class AnalysisEngine:
                 self.net, state, sp_arr, sub, size=size, num_sims=visits,
                 max_nodes=visits + 3, max_visits=visits,
                 ladder_mode=self.ladder_mode, root_allowed_mask=mask,
+                feature_version=self.feature_version, sgf_meta=meta,
                 track_moves_ownership=mo)
         if cache_key is not None:
             self._tree_cache.pop(cache_key, None)

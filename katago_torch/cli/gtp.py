@@ -5,8 +5,12 @@ Speaks standard GTP plus the reference's kata-* extensions: rules get/set,
 kata-raw-nn, streaming kata-analyze / lz-analyze (interval info lines with
 multi-move PVs and ownership, interrupted by the next command), the
 genmove_analyze family, time-managed search through the chunked
-SearchDriver, pondering (AsyncSearch between moves), anti-mirror and
-resignation. Searches one game at a time on `device` (CUDA unless
+SearchDriver, pondering (AsyncSearch between moves), anti-mirror,
+avoidRepeatedPatternUtility (search/patternbonus.py) and resignation.
+Serves any reference net the parser reads: V3-V6 nets get their own
+input features, and a humanSL net (metadata encoder) is conditioned on
+the humanSLProfile config's profile in its searches and in
+kata-raw-human-nn. Searches one game at a time on `device` (CUDA unless
 `-device cpu`; with no CUDA and no -device it raises). Every command
 answers with the JAX engine's text.
 
@@ -62,10 +66,6 @@ KNOWN_COMMANDS = [
     "kata-list_time_settings", "kata-set-position",
     "set_position", "stop", "debug_moves",
 ]
-
-M11_HUMAN_SL = ("humanSLProfile needs the SGF metadata encoder, which is "
-                "not ported (ROADMAP M11)")
-
 
 def loc_to_gtp(loc: int, size: int, x_size: int | None = None,
                y_size: int | None = None) -> str:
@@ -159,24 +159,30 @@ class GTPEngine:
         # anti-mirror countering (searchParams.antiMirror, on by default
         # like gtp_example.cfg; detection reruns before every search)
         self.anti_mirror = anti_mirror
+        # humanSL profile conditioning (humanSLProfile config): evals of
+        # a metadata-encoder net are conditioned on a named rank/pro
+        # profile's 192-float row (models/sgfmetadata.py)
         self.sgf_meta = None
         if human_sl_profile:
-            raise NotImplementedError(M11_HUMAN_SL)
+            from katago_torch.models.sgfmetadata import get_profile
+            self.sgf_meta = get_profile(human_sl_profile)
         self._nets: dict[int, torch.nn.Module] = {}
         if model_path:
             from katago_torch.models import desc as D
             self.desc = D.load_model(model_path)
-            if self.desc.input_version != 7:
-                raise NotImplementedError(
-                    f"model version {self.desc.version} needs input "
-                    f"features V{self.desc.input_version}; the port has V7 "
-                    "only (ROADMAP M11)")
+            if self.sgf_meta is not None and \
+                    self.desc.trunk.get("meta_encoder") is None:
+                raise ValueError(
+                    "humanSLProfile requires a metadata-encoder net")
             self._desc_net = D.DescNet(self.desc).to(self.device).eval()
             self.model_name = self.desc.name
+            # V3-V6 nets are fed their own input features
+            self.feature_version = self.desc.input_version
         else:
             self.desc = None
             self._desc_net = None
             self.model_name = "random-init-b2c16"
+            self.feature_version = 7
         self.clear_board()
 
     def net(self) -> torch.nn.Module:
@@ -266,7 +272,8 @@ class GTPEngine:
                 chunk_size=max(4, min(32, self.visits // 4)),
                 ladder_mode=self.ladder_mode,
                 root_num_symmetries=self.search_params.root_num_symmetries,
-                device=self.device)
+                feature_version=self.feature_version,
+                sgf_meta=self.sgf_meta, device=self.device)
         return self._drivers[key]
 
     def _mirror_arrs(self, root_pla: int):
@@ -292,11 +299,19 @@ class GTPEngine:
             center_err=self._one(err, torch.float32))
 
     def _pattern_bonus_arrs(self, root_pla: int):
-        """avoidRepeatedPatternUtility: not ported (ROADMAP M9)."""
-        if self.search_params.avoid_repeated_pattern_utility == 0.0 or \
-                not self.moves:
+        """avoidRepeatedPatternUtility table from this game's own moves
+        (search.cpp:715-727); None when off, so the search runs none of
+        the pattern code."""
+        u = self.search_params.avoid_repeated_pattern_utility
+        if u == 0.0 or not self.moves:
             return None
-        raise NotImplementedError(mcts.PATTERN_BONUS_M9)
+        from katago_torch.search import patternbonus as PB
+        boards_before = [self.stones_np(g) for g in self.history[:-1]]
+        moves = [loc for _, loc in self.moves]
+        plas = [p for p, _ in self.moves]
+        return PB.build_avoid_repeat_table(boards_before, moves, plas,
+                                           self.size, root_pla, u,
+                                           self.device)
 
     def search_root(self, player: int, visits: int | None = None,
                     max_time: float | None = None,
@@ -416,18 +431,28 @@ class GTPEngine:
 
     # -- reporting -----------------------------------------------------------
 
-    def _raw(self, gs, sym: int | None = None):
-        """Exact-ladder V7 features of gs -> the net's raw outputs (one
-        game), optionally under one dihedral symmetry."""
+    def _raw(self, gs, sym: int | None = None, human: bool = False):
+        """Exact-ladder features of gs (the net's input version) -> the
+        net's raw outputs (one game), optionally under one dihedral
+        symmetry; human: conditioned on the humanSL profile's row."""
         from katago_torch.models import features as F
         from katago_torch.ops import symmetry as SYM
         legal = H.legal_moves(gs, self.size)
-        spf, glf = F.fill_features_v7(
-            gs, self.size, F.FeatureParams.default(self.device), legal)
+        spf, glf = F.fill_features(
+            gs, self.size, F.FeatureParams.default(self.device), legal,
+            version=self.feature_version)
         if sym is not None:
             spf = SYM.transform_spatial(spf, self._one(sym), self.size)
+        meta = None
+        if human:
+            from katago_torch.models.sgfmetadata import fill_metadata_row
+            meta = torch.from_numpy(fill_metadata_row(
+                self.sgf_meta,
+                next_player_is_white=int(gs.pos.to_move[0]) == B.WHITE,
+                board_area=self.size * self.size))[None].to(self.device)
         with torch.no_grad():
-            raw = self.net()(spf.reshape(1, self.size, self.size, -1), glf)
+            raw = self.net()(spf.reshape(1, self.size, self.size, -1), glf,
+                             metadata=meta)
         return raw, legal
 
     def debug_moves_str(self, branch: list[int],
@@ -704,8 +729,7 @@ class GTPEngine:
             # profile (gtp.cpp kata-raw-human-nn)
             if self.sgf_meta is None:
                 raise ValueError("kata-raw-human-nn requires humanSLProfile")
-            raise NotImplementedError(M11_HUMAN_SL)
-        raw, _ = self._raw(self.gs)
+        raw, _ = self._raw(self.gs, human=use_human_profile)
         pol = torch.softmax(raw["policy_logits"][0, 0].float(),
                             -1).cpu().numpy()
         val = torch.softmax(raw["value_logits"][0].float(), -1).cpu().numpy()

@@ -3,22 +3,23 @@
 The port's own copy of the parser of katago_tpu/models/desc.py (every
 block kind, model versions 3..17, the same ModelParseError and sha256),
 and `DescNet`, an nn.Module built from a parsed ModelDesc that computes
-the JAX package's `apply_desc_model` for the conv families: ordinary,
-gpool and nested-bottleneck blocks, merged batch norms and activations,
-the policy head with the v15+ pass MLP, the value head and the version
-normalization of its score channels (`_normalize_value_channels`). It
-returns the raw-output dict that the port's search reads from
-KataGoModel, keys included.
+the JAX package's `apply_desc_model` for every family it reads:
+ordinary, gpool and nested-bottleneck blocks, merged batch norms and
+activations, the v17 transformer attention blocks (grouped-query, fixed
+or learnable 2-D RoPE, off-board keys masked) and FFN blocks (plain or
+SwiGLU), the trunk-tip RMSNorm, the SGF metadata encoder of humanSL nets
+(`forward(..., metadata=)`), the policy head with the v15+ pass MLP, the
+value head and the version normalization of its score channels
+(`_normalize_value_channels`). It returns the raw-output dict that the
+port's search reads from KataGoModel, keys included.
 
 Layout: the file stores conv weights y,x,ic,oc (HWIO) and matmuls
 ic,oc; `DescNet` converts them once, at construction, to OIHW and
-[out, in] and runs NCHW inside; callers pass NHWC planes as they do to
-KataGoModel. The forward runs in float32 with TF32 off (the JAX desc
-forward is float32); its convolutions and matmuls are cuDNN/cuBLAS.
-
-Transformer attention / FFN blocks, the trunk-tip RMSNorm and the SGF
-metadata encoder parse, but `DescNet` raises NotImplementedError for
-them (ROADMAP M11).
+[out, in] and runs NCHW inside (the transformer blocks view the trunk
+as [B, H*W, C]); callers pass NHWC planes as they do to KataGoModel. The
+forward runs in float32 with TF32 off (the JAX desc forward is float32);
+its convolutions and matmuls are cuDNN/cuBLAS. RoPE tables are computed
+in numpy exactly as the JAX package computes them, once per board shape.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from katago_torch.models.model import rope_cos_sin_2d, rotate_every_two
 
 
 class ModelParseError(ValueError):
@@ -503,36 +506,39 @@ _ACT_FNS = {"relu": F.relu, "silu": F.silu, "identity": lambda x: x,
 _PRECISION_LOCK = threading.Lock()
 
 
-def _m11(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported (ROADMAP M11: transformer blocks and the "
-        "metadata encoder)")
-
-
 class DescNet(nn.Module):
     """A parsed reference net (ModelDesc) as a float32 nn.Module.
 
-    forward(spatial [B,H,W,C] NHWC, global [B,G], mask=None [B,H,W,1])
-    -> the raw-output dict of the JAX package's apply_desc_model: policy
-    logits [B, Cpol, H*W+1], value logits [B, 3], miscvalue [B, 10] and
-    moremiscvalue [B, 8] in the v14-native conventions, ownership
-    [B, H, W], zero placeholders for the heads a desc net lacks, and
-    supports_shortterm_error False for versions below 9."""
+    forward(spatial [B,H,W,C] NHWC, global [B,G], mask=None [B,H,W,1],
+    metadata=None [B,192]) -> the raw-output dict of the JAX package's
+    apply_desc_model: policy logits [B, Cpol, H*W+1], value logits
+    [B, 3], miscvalue [B, 10] and moremiscvalue [B, 8] in the v14-native
+    conventions, ownership [B, H, W], zero placeholders for the heads a
+    desc net lacks, and supports_shortterm_error False for versions
+    below 9. metadata conditions a humanSL net's metadata encoder (zeros
+    when None); other nets ignore it."""
 
     def __init__(self, desc: ModelDesc):
         super().__init__()
         self.desc = desc
         self.version = desc.version
         self._n = 0
+        self._rope_cache: dict = {}
         t = desc.trunk
-        if t.get("meta_encoder") is not None:
-            raise _m11("the SGF metadata encoder")
-        if t.get("final_rms") is not None:
-            raise _m11("the trunk-tip RMSNorm")
         self.initial_conv = self._conv(t["initial_conv"])
         self.initial_matmul = self._mat(t["initial_matmul"])
+        me = t.get("meta_encoder")
+        self.meta = None if me is None else {
+            k: self._layer(v) for k, v in me.items()
+            if k not in ("name", "in_ch")}
         self.blocks = [self._block(b) for b in t["blocks"]]
-        self.final_bn = self._bn(t["final_bn"])
+        self.final_bn = self.final_rms = None
+        if t.get("final_rms") is not None:
+            fr = t["final_rms"]
+            self.final_rms = (self._buf(fr.gamma), self._buf(fr.beta),
+                              fr.eps, fr.spatial)
+        else:
+            self.final_bn = self._bn(t["final_bn"])
         self.final_act = t["final_act"]
         ph, vh = desc.policy_head, desc.value_head
         self.ph = {k: self._layer(v) for k, v in ph.items() if k != "name"}
@@ -565,11 +571,16 @@ class DescNet(nn.Module):
             return self._mat(v)
         if isinstance(v, MatBias):
             return ("bias", self._buf(v.bias))
+        if isinstance(v, TRMSNorm):
+            return ("trms", self._buf(v.weight), v.eps)
         return v            # activation names and header ints
 
     def _block(self, blk: dict) -> dict:
         if blk["kind"] in ("attention", "ffn"):
-            raise _m11(f"the transformer {blk['kind']} block {blk['name']}")
+            out = {k: self._layer(v) for k, v in blk.items()
+                   if k != "rope_freqs"}
+            out["rope_freqs"] = blk.get("rope_freqs")   # numpy, host side
+            return out
         out = {}
         for k, v in blk.items():
             if k == "sub_blocks":
@@ -617,7 +628,83 @@ class DescNet(nn.Module):
                           mean * (sqrt_off * sqrt_off / 100.0 - 0.1)],
                          dim=1)[:, :, 0, 0]
 
+    def _trms(self, x, n):
+        """Weight-only RMSNorm over the last axis (eigenbackend.cpp:866-918)."""
+        _, wname, eps = n
+        ms = torch.mean(x * x, dim=-1, keepdim=True)
+        return x * torch.rsqrt(ms + eps) * self._w(wname)
+
+    def _rope(self, blk, h, w, device):
+        """cos/sin [S, num_kv_heads or 1, D] of computeRopeCosSin
+        (desc.cpp:1301-1363): fixed RoPE is the model's interleaved 2-D
+        table; learnable RoPE is x * freq_x + y * freq_y per KV head."""
+        key = (blk["name"], h, w, str(device))
+        if key in self._rope_cache:
+            return self._rope_cache[key]
+        if blk["learnable_rope"]:
+            ys, xs = np.meshgrid(np.arange(h, dtype=np.float32),
+                                 np.arange(w, dtype=np.float32),
+                                 indexing="ij")
+            fr = np.asarray(blk["rope_freqs"], np.float32)
+            ang = np.repeat(xs.reshape(-1, 1, 1) * fr[None, :, :, 0]
+                            + ys.reshape(-1, 1, 1) * fr[None, :, :, 1],
+                            2, axis=-1)
+            cos, sin = np.cos(ang), np.sin(ang)
+        else:
+            cos, sin = rope_cos_sin_2d(blk["q_head_dim"], h,
+                                       blk["rope_theta"], w)
+            cos, sin = cos[:, None, :], sin[:, None, :]
+        out = (torch.from_numpy(np.ascontiguousarray(cos)).to(device),
+               torch.from_numpy(np.ascontiguousarray(sin)).to(device))
+        self._rope_cache[key] = out
+        return out
+
+    def _apply_attention(self, x, blk, mask):
+        """GQA attention over board positions (eigenbackend.cpp:1374-1612)."""
+        b, c, h, w = x.shape
+        s = h * w
+        nh, nkv = blk["num_heads"], blk["num_kv_heads"]
+        qd, vd = blk["q_head_dim"], blk["v_head_dim"]
+        xs = self._trms(x.flatten(2).transpose(1, 2), blk["pre_ln"])
+        q = self._apply_mat(xs, blk["q_proj"]).reshape(b, s, nh, qd)
+        k = self._apply_mat(xs, blk["k_proj"]).reshape(b, s, nkv, qd)
+        v = self._apply_mat(xs, blk["v_proj"]).reshape(b, s, nkv, vd)
+        if blk["use_rope"]:
+            cos, sin = self._rope(blk, h, w, x.device)     # [S, kv|1, D]
+            qcos, qsin, kcos, ksin = cos, sin, cos, sin
+            if blk["learnable_rope"]:
+                # q heads take their kv head's table (eigenbackend.cpp:1444)
+                qcos = cos.repeat_interleave(nh // nkv, dim=1)
+                qsin = sin.repeat_interleave(nh // nkv, dim=1)
+            q = q * qcos + rotate_every_two(q) * qsin
+            k = k * kcos + rotate_every_two(k) * ksin
+        if nh != nkv:
+            k = k.repeat_interleave(nh // nkv, dim=2)
+            v = v.repeat_interleave(nh // nkv, dim=2)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / float(np.sqrt(qd))
+        logits = torch.where(mask.reshape(b, 1, 1, s) > 0, logits, -1e30)
+        att = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, s, nh * vd)
+        out = self._apply_mat(out, blk["out_proj"])
+        return x + out.transpose(1, 2).reshape(b, c, h, w) * mask
+
+    def _apply_ffn(self, x, blk, mask):
+        """SwiGLU / plain FFN (eigenbackend.cpp:1643-1720): silu applies
+        to linear1's output, times the gate projection; plain is relu."""
+        xs = self._trms(x.permute(0, 2, 3, 1), blk["pre_ln"])
+        y = self._apply_mat(xs, blk["linear1"])
+        if blk["use_swiglu"]:
+            y = F.silu(y) * self._apply_mat(xs, blk["linear_gate"])
+        else:
+            y = F.relu(y)
+        y = self._apply_mat(y, blk["linear2"])
+        return x + y.permute(0, 3, 1, 2) * mask
+
     def _apply_block(self, x, blk, mask, mask_sum_hw):
+        if blk["kind"] == "attention":
+            return self._apply_attention(x, blk, mask)
+        if blk["kind"] == "ffn":
+            return self._apply_ffn(x, blk, mask)
         act = lambda name, v: _ACT_FNS[name](v)  # noqa: E731
         bn = lambda v, k: self._apply_bn(v, blk[k], mask)  # noqa: E731
         conv = lambda v, k: self._apply_conv(v, blk[k])  # noqa: E731
@@ -693,12 +780,12 @@ class DescNet(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def forward(self, spatial, global_in, mask=None):
+    def forward(self, spatial, global_in, mask=None, metadata=None):
         from katago_torch.train.train_step import float32_precision
         with _PRECISION_LOCK, float32_precision():
-            return self._forward(spatial, global_in, mask)
+            return self._forward(spatial, global_in, mask, metadata)
 
-    def _forward(self, spatial, global_in, mask):
+    def _forward(self, spatial, global_in, mask, metadata):
         b, h, w, _ = spatial.shape
         x_in = spatial.float().permute(0, 3, 1, 2)
         if mask is None:
@@ -711,9 +798,33 @@ class DescNet(nn.Module):
         x = self._apply_conv(x_in, self.initial_conv)
         x = x + self._apply_mat(global_in.float(),
                                 self.initial_matmul)[:, :, None, None]
+        if self.meta is not None:
+            me = self.meta
+            if metadata is None:
+                metadata = torch.zeros((b, 192), dtype=torch.float32,
+                                       device=spatial.device)
+            m = self._apply_mat(metadata.float(), me["mul1"]) + \
+                self._w(me["bias1"][1])
+            m = _ACT_FNS[me["act1"]](m)
+            m = self._apply_mat(m, me["mul2"]) + self._w(me["bias2"][1])
+            m = _ACT_FNS[me["act2"]](m)
+            x = x + self._apply_mat(m, me["mul3"])[:, :, None, None]
         for blk in self.blocks:
             x = self._apply_block(x, blk, mask, mask_sum_hw)
-        x = _ACT_FNS[self.final_act](self._apply_bn(x, self.final_bn, mask))
+        if self.final_rms is not None:
+            gamma, beta, eps, spatial_rms = self.final_rms
+            if spatial_rms:
+                # RMS over every on-board position and channel of a board
+                ssum = torch.sum(x * x * mask, dim=(1, 2, 3), keepdim=True)
+                rms = torch.rsqrt(ssum / (mask_sum_hw * x.shape[1]) + eps)
+            else:
+                rms = torch.rsqrt(torch.mean(x * x, dim=1, keepdim=True)
+                                  + eps)
+            x = (x * rms * self._w(gamma)[:, None, None]
+                 + self._w(beta)[:, None, None]) * mask
+        else:
+            x = self._apply_bn(x, self.final_bn, mask)
+        x = _ACT_FNS[self.final_act](x)
 
         ph = self.ph
         p1 = self._apply_conv(x, ph["p1_conv"])

@@ -1,19 +1,24 @@
 """Export the port's net to the reference .bin.gz weight format — the
-port's own copy of the conv part of katago_tpu/models/export.py.
+port's own copy of katago_tpu/models/export.py.
 
 The reference's python/export_model_pytorch.py:206-394 writes the engine
-format consumed by desc.cpp; this writes the same text+@BIN@ layout for
+format consumed by desc.cpp; this writes the same text+@BIN@ layout:
 versions 8..15 conv-trunk models (initial conv/matmul, ordinary / gpool /
-nested-bottleneck blocks, policy head with the v15 pass-MLP, value head
-v3/sv3/ownership outputs). Transformer blocks and the SGF-metadata
-encoder raise NotImplementedError, as the port's net does. Fixup
-NormMask layers are written as merged batchnorms (mean 0, var 1, scale
-gamma, bias beta — the same merged-affine form desc.cpp computes from real
-BN stats).
+nested-bottleneck blocks — bottle1-3 and bottlenest2 — policy head with
+the v15 pass-MLP, value head v3/sv3/ownership outputs) and version 17
+transformer models (transformer_attention_block / transformer_ffn_block
+with fixed 2-D RoPE and SwiGLU, export_model_pytorch.py:394-454) plus the
+v15+ SGF-metadata encoder (write_metadata_encoder,
+export_model_pytorch.py:493-505). Fixup NormMask layers are written as
+merged batchnorms (mean 0, var 1, scale gamma, bias beta — the same
+merged-affine form desc.cpp computes from real BN stats).
 
 Input: the Flax params tree in numpy (models/weights.py::to_flax_params
 of the port's state_dict), so the bytes equal the JAX exporter's on the
-same weights.
+same weights. It refuses what the JAX exporter refuses, with the same
+messages: QK-norm attention (the reference exporter rejects it too), a
+non-SwiGLU FFN under another activation than relu, and block kinds the
+format has no entry for (the nested-bottleneck transformer hybrids).
 
 Policy outputs follow the reference channel selection: of the model's 6 or
 8 policy channels only (policy, short-term-optimistic[, q-winloss,
@@ -23,7 +28,7 @@ the two shortterm errors from moremiscvalue (write_value_head).
 
 Not representable in this format (dropped, zero-filled by the loader):
 the remaining miscvalue/moremiscvalue td channels, scoring/futurepos/seki
-convs, and the scorebelief mixture head.
+convs, the scorebelief mixture head and intermediate heads.
 """
 
 from __future__ import annotations
@@ -86,25 +91,24 @@ def _np(p):
 def export_model(params, cfg: ModelConfig, path: str,
                  name: str | None = None) -> str:
     """Write params (a Flax params tree in numpy, e.g. to_flax_params of
-    the port's state_dict) to the reference engine format at `path` (gzip
-    if it ends with .gz)."""
+    the port's state_dict) to the reference engine format at `path`
+    (gzip if it ends with .gz)."""
     p = params["params"] if "params" in params else params
     w = _Writer()
     actn = cfg.activation
     blocks = list(cfg.block_kind)
-    if cfg.metadata_encoder or any(k.startswith(("attn", "ffn"))
-                                   for k in blocks):
-        raise NotImplementedError(
-            "exporting transformer blocks or the metadata encoder is not "
-            "ported (the port's net has neither)")
-    version = 17 if cfg.version >= 16 else 15
+    has_transformer = any(k.startswith(("attn", "ffn")) for k in blocks)
+    version = 17 if (has_transformer or cfg.version >= 16) else 15
+    if cfg.attention_qk_norm and has_transformer:
+        raise ValueError("QK-norm attention is not exportable "
+                         "(matches the reference exporter's restriction)")
     w.tok(name or cfg.name)
     w.tok(version)
     w.tok(22, 19)
     # postprocess multipliers, reader order (desc.py load_model)
     for v in (20.0, 20.0, 20.0, 20.0, 40.0, 0.25, 30.0):
         w.tok(v)
-    w.tok(0)                       # metadata encoder version (none)
+    w.tok(1 if cfg.metadata_encoder else 0)  # metadata encoder version
     for _ in range(7):
         w.tok(0)
 
@@ -117,8 +121,60 @@ def export_model(params, cfg: ModelConfig, path: str,
     w.conv("initconv", _np(p["Conv_0"]["Conv_0"]["kernel"]))
     w.matmul("initmatmul", _np(p["Dense_0"]["kernel"]))
 
+    if cfg.metadata_encoder:
+        me = p["MetadataEncoder_0"]
+        w.tok("metaencoder", 192)
+        # fold the channel-86 feature mask into mul1 and the 0.5 output
+        # scale into mul3 (export_model_pytorch.py write_metadata_encoder)
+        mul1 = _np(me["Dense_0"]["kernel"]).copy()
+        mul1[86, :] = 0.0
+        w.matmul("metamul1", mul1)
+        w.matbias("metabias1", _np(me["Dense_0"]["bias"]))
+        w.act(actn)
+        w.matmul("metamul2", _np(me["Dense_1"]["kernel"]))
+        w.matbias("metabias2", _np(me["Dense_1"]["bias"]))
+        w.act(actn)
+        w.matmul("metamul3", 0.5 * _np(me["Dense_2"]["kernel"]))
+
     res_i = 0
     nest_i = 0
+    attn_i = 0
+    ffn_i = 0
+
+    def write_trms(label, np_weight, eps=1e-6):
+        """Weight-only transformer RMSNorm (write_transformer_norm)."""
+        w.tok(label, np_weight.shape[0], eps)
+        w.bin(np_weight)
+
+    def write_attention(bp, label, use_rope):
+        c = cfg.trunk_num_channels
+        nh = cfg.transformer_heads
+        nkv = cfg.transformer_kv_heads or nh
+        qd = c // nh
+        w.tok("transformer_attention_block", label, nh, nkv, qd, qd,
+              1 if use_rope else 0, 0)
+        write_trms(f"{label}.norm", _np(bp["RMSNorm_0"]["scale"]))
+        w.matmul(f"{label}.q", _np(bp["q_proj"]["kernel"]))
+        w.matmul(f"{label}.k", _np(bp["k_proj"]["kernel"]))
+        w.matmul(f"{label}.v", _np(bp["v_proj"]["kernel"]))
+        w.matmul(f"{label}.out", _np(bp["out_proj"]["kernel"]))
+        if use_rope:
+            w.tok(f"{label}.rope_theta", cfg.rope_theta)
+
+    def write_ffn(bp, label, use_swiglu):
+        if not use_swiglu and actn != "relu":
+            # the engine format carries no FFN activation token; non-SwiGLU
+            # implies relu (desc.cpp:1368-1408; the reference's CUDA/Eigen
+            # backends reject non-SwiGLU outright)
+            raise ValueError(
+                f"non-SwiGLU FFN with activation {actn!r} is not exportable")
+        w.tok("transformer_ffn_block", label, cfg.trunk_num_channels,
+              cfg.transformer_ffn_channels, 1 if use_swiglu else 0)
+        write_trms(f"{label}.norm", _np(bp["RMSNorm_0"]["scale"]))
+        w.matmul(f"{label}.l1", _np(bp["ffn_linear1"]["kernel"]))
+        if use_swiglu:
+            w.matmul(f"{label}.lg", _np(bp["ffn_linear_gate"]["kernel"]))
+        w.matmul(f"{label}.l2", _np(bp["ffn_linear2"]["kernel"]))
 
     def write_res_block(bp, label, has_gpool):
         """One flax ResBlock params subtree as ordinary/gpool block."""
@@ -152,6 +208,16 @@ def export_model(params, cfg: ModelConfig, path: str,
         w.conv("finalconv", c_fin)
 
     for kind in blocks:
+        if kind.startswith("attn"):
+            bp = p[f"TransformerAttentionBlock_{attn_i}"]
+            attn_i += 1
+            write_attention(bp, f"attn{attn_i}", use_rope=(kind == "attnrope"))
+            continue
+        if kind.startswith("ffn"):
+            bp = p[f"TransformerFFNBlock_{ffn_i}"]
+            ffn_i += 1
+            write_ffn(bp, f"ffn{ffn_i}", use_swiglu=(kind == "ffnsg"))
+            continue
         use_gpool = kind.endswith("gpool")
         base = kind[:-5] if use_gpool else kind
         if base == "regular":

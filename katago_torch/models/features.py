@@ -1,14 +1,14 @@
-"""V7 input featurizer — port of katago_tpu/models/features.py (V7 only),
-batched over games. Reference: KataGo NNInputs::fillRowV7
+"""Input featurizer — port of katago_tpu/models/features.py, batched
+over games. Reference: KataGo NNInputs::fillRowV7
 (nninputs.cpp:2300-2740): 22 spatial binary planes + 19 global floats
-from the perspective of the player to move. See the JAX module docstring
-for the plane and global maps.
+from the perspective of the player to move, and the older versions V3-V6
+derived from them (`fill_features`). See the JAX module docstring for
+the plane and global maps.
 
 Ladder planes 14-17 come from the exact backtracking solver
 (ladder_mode "exact", the JAX default: per-move and data-writing
 featurization) or the greedy chase (ladder_mode "chase": the search
-evaluator's). The V3-V6 feature versions are not ported yet and raise
-NotImplementedError.
+evaluator's).
 """
 
 from __future__ import annotations
@@ -213,7 +213,7 @@ def fill_features_v7(gs: H.GameState, size: int, params: FeatureParams,
     sk = self_komi(gs, params)
     b_area = onboard.to(f32).sum(dim=-1)
     sk = torch.clamp(sk, -b_area - KOMI_CLIP_RADIUS, b_area + KOMI_CLIP_RADIUS)
-    gl[5] = sk / 20.0
+    gl[5] = sk * 0.05   # XLA folds the JAX package's sk / 20 into this
     is_pos_like = (ko == R.KO_POSITIONAL) | (ko == R.KO_SPIGHT)
     is_sit = ko == R.KO_SITUATIONAL
     gl[6] = (is_pos_like | is_sit).to(f32)
@@ -242,19 +242,66 @@ def fill_features_v7(gs: H.GameState, size: int, params: FeatureParams,
     return torch.stack(planes, dim=-1), torch.stack(gl, dim=-1)
 
 
+# Older input-feature versions (modelversion.cpp getInputsVersion):
+# model v3/v4 -> inputs V3, v5 -> V4, v6 -> V5, v7 -> V6, v8+ -> V7.
+# V3/V4/V6 share V7's 22-plane spatial layout with different territory
+# semantics on planes 18/19 (fillRowV3 nninputs.cpp:1145, fillRowV4
+# "pass-alive only" nninputs.cpp:1490, fillRowV6 nninputs.cpp:1935); V5
+# is the reduced 13-plane set (fillRowV5 nninputs.cpp:1649: no ko-ban or
+# ladder planes, history at 6-10, second-encore stones at 11/12).
+# Globals are subsets or permutations of V7's with komi scaled /15
+# before V6.
+
+NUM_SPATIAL_BY_VERSION = {3: 22, 4: 22, 5: 13, 6: 22, 7: NUM_SPATIAL_V7}
+NUM_GLOBAL_BY_VERSION = {3: 14, 4: 14, 5: 12, 6: 16, 7: NUM_GLOBAL_V7}
+
+
 def fill_features(gs: H.GameState, size: int, params: FeatureParams,
                   legal: torch.Tensor, *, version: int = 7,
                   with_ladders: bool = True, ladder_mode: str = "exact",
                   prev_laddered=None, prev_prev_laddered=None,
                   cur_ladder=None, ladder_stats: dict | None = None):
-    """Versioned featurizer; only V7 is ported."""
-    if version != 7:
-        raise NotImplementedError(
-            f"input-features version {version}: only V7 is ported")
-    return fill_features_v7(gs, size, params, legal,
-                            with_ladders=with_ladders,
-                            ladder_mode=ladder_mode,
-                            prev_laddered=prev_laddered,
-                            prev_prev_laddered=prev_prev_laddered,
-                            cur_ladder=cur_ladder,
-                            ladder_stats=ladder_stats)
+    """Versioned featurizer: V3..V7 (spatial float32[G, NN, C],
+    global float32[G, Cg]) rows, C and Cg per version."""
+    if version not in NUM_SPATIAL_BY_VERSION:
+        raise ValueError(f"unsupported input-features version {version}")
+    sp, gl = fill_features_v7(gs, size, params, legal,
+                              with_ladders=(with_ladders and version != 5),
+                              ladder_mode=ladder_mode,
+                              prev_laddered=prev_laddered,
+                              prev_prev_laddered=prev_prev_laddered,
+                              cur_ladder=cur_ladder,
+                              ladder_stats=ladder_stats)
+    if version == 7:
+        return sp, gl
+    if version in (3, 4):
+        # planes 18/19: V3 = scoring-dependent plain area (area scoring:
+        # all stones and territories; territory scoring: pass-alive and
+        # safe big territories only); V4 = always the pass-alive recipe
+        pla = gs.to_move.unsqueeze(-1)
+        opp = B.opponent(gs.to_move).unsqueeze(-1)
+        is_area = gs.rules.scoring_rule == R.SCORING_AREA
+        non_pass_alive = False if version == 4 else is_area
+        area = benson.calculate_area(gs.board.stones, size, non_pass_alive,
+                                     True, non_pass_alive,
+                                     gs.rules.multi_suicide)
+        sp = sp.clone()
+        sp[..., 18] = (area == pla).float()
+        sp[..., 19] = (area == opp).float()
+    if version == 5:
+        # [0-5 board/libs][6-10 prev moves 1-5][11,12 second-encore]
+        sp = torch.cat([sp[..., 0:6], sp[..., 9:14], sp[..., 20:22]], dim=-1)
+    # V3/V4/V5 scale selfKomi by /15 (JAX's * 20 / 15, as XLA folds it)
+    komi15 = gl[:, 5:6] * (20.0 / 15.0)
+    if version in (3, 4):
+        gl = torch.cat([gl[:, 0:5], komi15, gl[:, 6:10],
+                        gl[:, 12:14],     # encore phase flags
+                        gl[:, 14:15],     # passWouldEndPhase
+                        gl[:, 18:19]],    # komi parity wave
+                       dim=-1)
+    elif version == 5:
+        gl = torch.cat([gl[:, 0:5], komi15, gl[:, 6:10], gl[:, 12:14]],
+                       dim=-1)
+    else:   # version 6: V7 minus pda (15, 16) and button (17), wave at 15
+        gl = torch.cat([gl[:, 0:15], gl[:, 18:19]], dim=-1)
+    return sp, gl

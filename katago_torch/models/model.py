@@ -1,29 +1,39 @@
-"""KataGo-family net as a torch nn.Module — port of the convolutional part
-of katago_tpu/models/model.py (model_pytorch.py in the reference).
+"""KataGo-family net as a torch nn.Module — port of
+katago_tpu/models/model.py (model_pytorch.py in the reference).
 
 Masked conv trunk with fixup "norm" (gamma/beta then mask), KataGPool
 global-pooling bias branches, regular and nested-bottleneck residual
-blocks, and the full head set. Block kinds "regular[gpool]" and
-"bottlenest2[gpool]" are ported; transformer, metadata-encoder and
-intermediate-head configs raise NotImplementedError.
+blocks (bottle1-3, bottlenest2, each with its gpool form), the v17
+transformer blocks (RMSNorm, grouped-query attention with optional
+QK-norm, interleaved 2-D RoPE or the Geometric Attention Bias, plain or
+SwiGLU FFNs, and the nested-bottleneck transformer hybrids), the humanSL
+metadata encoder, intermediate heads (mid-trunk or trunk end), and the
+full head set.
 
 Layouts: the public forward takes the JAX package's NHWC spatial input
-[B, H, W, 22] and global input [B, 19] and returns the same output
-layouts; inside, activations are NCHW. `dtype` is the compute dtype of
-the trunk convolutions (bfloat16 for search, float32 for the tests),
-applied where flax's `dtype=` applies it, so the float32 heads and
-promotions match: weights stay float32 and are cast at use.
+[B, H, W, 22] and global input [B, 19] (and optional metadata [B, 192])
+and returns the same output layouts; inside, activations are NCHW, and
+the transformer blocks view them as [B, H*W, C]. `dtype` is the compute
+dtype of the trunk convolutions and projections (bfloat16 for search,
+float32 for the tests), applied where flax's `dtype=` applies it, so
+the float32 heads, softmaxes and promotions match: weights stay float32
+and are cast at use. Attention is plain matmuls with a float32 softmax,
+as the JAX package writes it (no kernel of its own on either side).
 
 Submodules carry the flax auto-names (Conv_0, Dense_1, NormMask_0,
-NestedBottleneckResBlock_3, ...) and parameters the flax leaf names
-(kernel, bias, beta, gamma), so a state_dict key is the flax parameter
-path joined by dots (models/weights.py).
+NestedBottleneckResBlock_3, TransformerAttentionBlock_0, q_proj,
+gab_templates, MetadataEncoder_0, intermediate_policy_head, ...) and
+parameters the flax leaf names (kernel, bias, beta, gamma, scale,
+freqs), so a state_dict key is the flax parameter path joined by dots
+(models/weights.py).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -295,50 +305,369 @@ class ValueHead(nn.Module):
         }
 
 
+class RMSNorm(nn.Module):
+    """torch.nn.RMSNorm over the last axis, computed in float32 and
+    returned in the input's dtype (the JAX package's RMSNorm)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(ms + self.eps) * self.scale).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_cos_sin_2d(dim: int, pos_len: int, theta: float = 100.0,
+                    pos_w: int | None = None):
+    """precompute_freqs_cos_sin_2d (model_pytorch.py:1415-1435): 2-D RoPE
+    tables, interleaved layout, first half of each head's pairs rotating
+    with the row and the second with the column, over a pos_len x pos_w
+    grid (pos_w defaults to pos_len). Returns (cos, sin) float32 numpy
+    [pos_len * pos_w, dim]."""
+    assert dim % 4 == 0
+    dim_half = dim // 2
+    freqs = 1.0 / (theta ** (np.arange(0, dim_half, 2, dtype=np.float32)
+                             / dim_half))
+    grid_h, grid_w = np.meshgrid(
+        np.arange(pos_len, dtype=np.float32),
+        np.arange(pos_w or pos_len, dtype=np.float32), indexing="ij")
+    emb = np.concatenate([grid_h[..., None] * freqs,
+                          grid_w[..., None] * freqs], axis=-1).reshape(
+        -1, dim_half)
+    emb = np.repeat(emb, 2, axis=-1)
+    return np.cos(emb), np.sin(emb)
+
+
+def rotate_every_two(x):
+    """(x0, x1) pairs of the last axis -> (-x1, x0)."""
+    x2 = x.reshape(x.shape[:-1] + (-1, 2))
+    return torch.stack([-x2[..., 1], x2[..., 0]], dim=-1).reshape(x.shape)
+
+
+def apply_rope(q, k, cos, sin):
+    """apply_rotary_emb (model_pytorch.py:1437-1455). q, k: [B, S, H, D];
+    cos, sin: [S, D] float32; results in q's and k's dtypes."""
+    cos = cos[None, :, None, :]
+    sin = sin[None, :, None, :]
+    q2 = q * cos + rotate_every_two(q) * sin
+    k2 = k * cos + rotate_every_two(k) * sin
+    return q2.to(q.dtype), k2.to(k.dtype)
+
+
+class GABTemplates(nn.Module):
+    """Geometric Attention Bias templates (GABTemplateMLP,
+    model_pytorch.py:1423-1470): learnable Fourier frequencies over the
+    relative offsets (dr, dc, dr+dc, dr-dc) -> MLP -> T translational
+    bias templates [S, S, T], shared by every GAB attention block."""
+
+    def __init__(self, cfg: ModelConfig, pos_len: int):
+        super().__init__()
+        nf, nt = cfg.gab_num_fourier_features, cfg.gab_num_templates
+        self.freqs = nn.Parameter(torch.empty(nf))
+        self.linear1 = Dense(8 * nf, cfg.gab_mlp_hidden, cfg.activation, 1.0)
+        self.linear2 = Dense(cfg.gab_mlp_hidden, nt, "identity", 1.0)
+        self.act = act_fn(cfg.activation)
+        self.num_templates = nt
+        idx = np.arange(pos_len * pos_len)
+        sr, sc = idx // pos_len, idx % pos_len
+        dr = (sr[:, None] - sr[None, :]).astype(np.float32)
+        dc = (sc[:, None] - sc[None, :]).astype(np.float32)
+        self.register_buffer("combos", torch.from_numpy(np.stack(
+            [dr, dc, dr + dc, dr - dc], -1)), persistent=False)
+
+    @staticmethod
+    def initial_freqs(n: int) -> torch.Tensor:
+        """The geometric init, 1 rad/square down to 1/50 rad/square."""
+        return torch.exp(torch.linspace(math.log(1.0), math.log(1.0 / 50.0),
+                                        n))
+
+    def forward(self, s: int):
+        ang = self.combos[:s, :s, :, None] * self.freqs      # [S,S,4,F]
+        feats = torch.cat([torch.sin(ang), torch.cos(ang)],
+                          dim=-1).reshape(s, s, -1)
+        t = self.linear2(self.act(self.linear1(feats)))
+        return t / math.sqrt(self.num_templates)             # [S,S,T]
+
+
+def _proj(c_in, c_out, dtype):
+    """A bias-free projection with flax's lecun_normal init (truncated
+    normal, std 1/sqrt(fan_in), as katago_init("identity", 1.0))."""
+    return Dense(c_in, c_out, "identity", 1.0, use_bias=False, dtype=dtype)
+
+
+class TransformerAttentionBlock(nn.Module):
+    """v17 attention half-block (model_pytorch.py:2079): RMSNorm -> GQA
+    projections (transformer_kv_heads; optional QK-norm) -> 2-D RoPE ->
+    attention over board positions with off-board keys masked and the
+    softmax in float32 -> out projection. Returns the residual.
+
+    use_gab: the Geometric Attention Bias — per-head mixtures of the
+    shared translational templates (GABTemplates), chosen from the
+    pooled board state, added to the logits (_compute_gab_bias,
+    model_pytorch.py:2208-2281)."""
+
+    def __init__(self, cfg: ModelConfig, pos_len: int, c: int,
+                 use_rope: bool = True, use_gab: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        nh = cfg.transformer_heads
+        nkv = cfg.transformer_kv_heads or nh
+        self.nh, self.nkv, self.qd = nh, nkv, c // nh
+        self.dtype = dtype
+        self.RMSNorm_0 = RMSNorm(c)
+        self.q_proj = _proj(c, nh * self.qd, dtype)
+        self.k_proj = _proj(c, nkv * self.qd, dtype)
+        self.v_proj = _proj(c, nkv * self.qd, dtype)
+        self.qk_norm = cfg.attention_qk_norm
+        if self.qk_norm:
+            self.q_norm = RMSNorm(self.qd)
+            self.k_norm = RMSNorm(self.qd)
+        self.use_rope = use_rope
+        if use_rope:
+            cos, sin = rope_cos_sin_2d(self.qd, pos_len, cfg.rope_theta)
+            self.register_buffer("rope_cos", torch.from_numpy(cos),
+                                 persistent=False)
+            self.register_buffer("rope_sin", torch.from_numpy(sin),
+                                 persistent=False)
+        self.use_gab = use_gab
+        if use_gab:
+            nt = cfg.gab_num_templates
+            self.num_templates = nt
+            self.gab_proj1 = _proj(c, cfg.gab_d1, dtype)
+            self.gab_proj2 = _proj(cfg.gab_d1, cfg.gab_d2, dtype)
+            self.gab_norm1 = RMSNorm(cfg.gab_d2)
+            self.gab_proj3 = _proj(cfg.gab_d2, nh * nt, dtype)
+            self.gab_norm2 = RMSNorm(nh * nt)
+            self.act = act_fn(cfg.activation)
+        self.out_proj = _proj(nh * self.qd, c, dtype)
+
+    def forward(self, x, mask, mask_sum_hw, gab_templates=None):
+        b, c, h, w = x.shape
+        s = h * w
+        nh, nkv, qd, dt = self.nh, self.nkv, self.qd, self.dtype
+        xn = self.RMSNorm_0(x.flatten(2).transpose(1, 2)).to(dt)  # [B,S,C]
+        q = self.q_proj(xn).reshape(b, s, nh, qd)
+        k = self.k_proj(xn).reshape(b, s, nkv, qd)
+        v = self.v_proj(xn).reshape(b, s, nkv, qd)
+        if self.qk_norm:
+            q = self.q_norm(q).to(dt)
+            k = self.k_norm(k).to(dt)
+        if self.use_rope:
+            q, k = apply_rope(q, k, self.rope_cos, self.rope_sin)
+        if nh > nkv:
+            k = k.repeat_interleave(nh // nkv, dim=2)
+            v = v.repeat_interleave(nh // nkv, dim=2)
+        # the JAX package divides by a numpy scalar, which promotes the
+        # logits to float32
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / \
+            math.sqrt(qd)
+        if self.use_gab:
+            assert gab_templates is not None, \
+                "GAB block needs the shared template tensor"
+            y = self.gab_proj1(xn)                           # [B,S,d1]
+            pooled = torch.sum(y * mask.reshape(b, s, 1), dim=1) / \
+                mask_sum_hw.reshape(b, 1)
+            z = self.gab_norm1(self.act(self.gab_proj2(pooled)))
+            z = self.gab_norm2(self.act(self.gab_proj3(z)))
+            z = z.reshape(b, nh, self.num_templates)
+            logits = logits + torch.einsum(
+                "bhd,std->bhst", z.float(), gab_templates.float())
+        logits = torch.where(mask.reshape(b, 1, 1, s) > 0, logits, -1e30)
+        att = torch.softmax(logits.float(), dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, s, nh * qd)
+        out = self.out_proj(out)
+        return out.transpose(1, 2).reshape(b, c, h, w) * mask
+
+
+class TransformerFFNBlock(nn.Module):
+    """v17 FFN half-block (model_pytorch.py:2485): RMSNorm -> FFN (the
+    config's activation, or SwiGLU: silu of linear1 times the gate
+    projection) -> projection. Returns the residual."""
+
+    def __init__(self, cfg: ModelConfig, c: int, use_swiglu: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        ffn = cfg.transformer_ffn_channels
+        self.dtype = dtype
+        self.RMSNorm_0 = RMSNorm(c)
+        self.ffn_linear1 = _proj(c, ffn, dtype)
+        self.use_swiglu = use_swiglu
+        if use_swiglu:
+            self.ffn_linear_gate = _proj(c, ffn, dtype)
+        self.ffn_linear2 = _proj(ffn, c, dtype)
+        self.act = act_fn(cfg.activation)
+
+    def forward(self, x, mask, mask_sum_hw):
+        xn = self.RMSNorm_0(x.permute(0, 2, 3, 1)).to(self.dtype)
+        y = self.ffn_linear1(xn)
+        if self.use_swiglu:
+            y = F.silu(y) * self.ffn_linear_gate(xn)
+        else:
+            y = self.act(y)
+        return self.ffn_linear2(y).permute(0, 3, 1, 2) * mask
+
+
+class NestedBottleneckTransformerBlock(nn.Module):
+    """1x1 conv down -> internal_length x (attention + FFN) at mid width
+    -> 1x1 conv up; returns the residual (model_pytorch.py:1921-2018, the
+    "nbttf" hybrids)."""
+
+    def __init__(self, cfg: ModelConfig, pos_len: int, internal_length: int,
+                 use_swiglu: bool = True, use_rope: bool = True,
+                 use_gab: bool = False, fixup_scale: float = 1.0,
+                 dtype=torch.float32):
+        super().__init__()
+        inner_scale = math.pow(fixup_scale, 1.0 / (1.0 + internal_length))
+        c, mid = cfg.trunk_num_channels, cfg.mid_num_channels
+        self.NormActConv_0 = NormActConv(c, mid, cfg.activation, 1,
+                                         inner_scale, dtype=dtype)
+        self.internal_length = internal_length
+        for i in range(internal_length):
+            setattr(self, f"attn{i + 1}", TransformerAttentionBlock(
+                cfg, pos_len, mid, use_rope=use_rope, use_gab=use_gab,
+                dtype=dtype))
+            setattr(self, f"ffn{i + 1}", TransformerFFNBlock(
+                cfg, mid, use_swiglu=use_swiglu, dtype=dtype))
+        self.NormActConv_1 = NormActConv(mid, c, cfg.activation, 1, 0.0,
+                                         use_gamma=True, dtype=dtype)
+
+    def forward(self, x, mask, mask_sum_hw, gab_templates=None):
+        out = self.NormActConv_0(x, mask, mask_sum_hw)
+        for i in range(self.internal_length):
+            out = out + getattr(self, f"attn{i + 1}")(
+                out, mask, mask_sum_hw, gab_templates=gab_templates)
+            out = out + getattr(self, f"ffn{i + 1}")(out, mask, mask_sum_hw)
+        return self.NormActConv_1(out, mask, mask_sum_hw)
+
+
+class MetadataEncoder(nn.Module):
+    """HumanSL SGF-metadata conditioning (model_pytorch.py:2881): 192
+    metadata floats, channel 86 (board area) masked out -> 2-layer MLP ->
+    trunk bias, scaled by 0.5."""
+
+    def __init__(self, cfg: ModelConfig, internal_channels: int = 64):
+        super().__init__()
+        actn = cfg.activation
+        self.Dense_0 = Dense(192, internal_channels, actn, 0.8)
+        self.Dense_1 = Dense(internal_channels, internal_channels, actn, 0.8)
+        self.Dense_2 = Dense(internal_channels, cfg.trunk_num_channels, actn,
+                             0.8, use_bias=False)
+        self.act = act_fn(actn)
+        m = torch.ones(192)
+        m[86] = 0.0
+        self.register_buffer("feature_mask", m, persistent=False)
+
+    def forward(self, input_meta):
+        x = input_meta.float() * self.feature_mask
+        x = self.act(self.Dense_0(x))
+        x = self.act(self.Dense_1(x))
+        return 0.5 * self.Dense_2(x)
+
+
+def block_spec(kind: str):
+    """A block kind -> (class name, kwargs of its constructor beyond the
+    shared ones), mirroring the dispatch of the JAX KataGoModel."""
+    if kind in ("attnrope", "attn"):
+        return "TransformerAttentionBlock", {"use_rope": kind == "attnrope"}
+    if kind in ("ffng", "ffnsg"):
+        return "TransformerFFNBlock", {"use_swiglu": kind == "ffnsg"}
+    if kind.startswith("bottlenest") and "transformer" in kind:
+        return "NestedBottleneckTransformerBlock", {
+            "internal_length": int(kind[len("bottlenest")]),
+            "use_gab": "gab" in kind, "use_rope": "rope" in kind,
+            "use_swiglu": kind.endswith("sg")}
+    use_gpool = kind.endswith("gpool")
+    base = kind[:-5] if use_gpool else kind
+    if base == "regular":
+        return "ResBlock", {"gpool": use_gpool}
+    if base in ("bottle1", "bottle2", "bottle3", "bottlenest2"):
+        return "NestedBottleneckResBlock", {
+            "internal_length": 2 if base == "bottlenest2" else int(base[-1]),
+            "gpool": use_gpool}
+    raise ValueError(f"unsupported block kind {kind!r}")
+
+
 class KataGoModel(nn.Module):
-    """Full net. forward(spatial [B,H,W,22], global [B,19], mask=None) ->
-    dict of head tensors in the JAX package's layouts."""
+    """Full net. forward(spatial [B,H,W,22], global [B,19], mask=None,
+    metadata=None [B,192]) -> dict of head tensors in the JAX package's
+    layouts, plus intermediate_* heads when the config has them."""
 
     def __init__(self, cfg: ModelConfig, pos_len: int,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if cfg.metadata_encoder or cfg.has_intermediate_head:
-            raise NotImplementedError(
-                "metadata encoder / intermediate heads are not ported")
         self.cfg, self.pos_len, self.dtype = cfg, pos_len, dtype
         actn = cfg.activation
         c = cfg.trunk_num_channels
         self.Conv_0 = Conv(22, c, 1 if cfg.initial_conv_1x1 else 3, actn, 0.8,
                            dtype)
         self.Dense_0 = Dense(19, c, actn, 0.6, use_bias=False, dtype=dtype)
-        fixup_scale = 1.0 / math.sqrt(max(len(cfg.block_kind), 1))
-        self.block_names = []
+        if cfg.metadata_encoder:
+            self.MetadataEncoder_0 = MetadataEncoder(
+                cfg, internal_channels=cfg.metadata_encoder_channels)
+        num_blocks = len(cfg.block_kind)
+        fixup_scale = 1.0 / math.sqrt(max(num_blocks, 1))
+        self.blocks = []            # (attribute name, takes gab templates)
         counts = {}
         for kind in cfg.block_kind:
-            use_gpool = kind.endswith("gpool")
-            base = kind[:-5] if use_gpool else kind
-            c_gp = cfg.gpool_num_channels if use_gpool else None
-            if base == "regular":
-                cls = "ResBlock"
+            cls, kw = block_spec(kind)
+            if cls == "ResBlock":
                 blk = ResBlock(c, cfg.mid_num_channels, actn, fixup_scale,
-                               c_gpool=c_gp, dtype=dtype)
-            elif base == "bottlenest2":
-                cls = "NestedBottleneckResBlock"
-                blk = NestedBottleneckResBlock(c, cfg.mid_num_channels, 2,
-                                               actn, fixup_scale,
-                                               c_gpool=c_gp, dtype=dtype)
+                               c_gpool=(cfg.gpool_num_channels
+                                        if kw["gpool"] else None),
+                               dtype=dtype)
+            elif cls == "NestedBottleneckResBlock":
+                blk = NestedBottleneckResBlock(
+                    c, cfg.mid_num_channels, kw["internal_length"], actn,
+                    fixup_scale, c_gpool=(cfg.gpool_num_channels
+                                          if kw["gpool"] else None),
+                    dtype=dtype)
+            elif cls == "TransformerAttentionBlock":
+                blk = TransformerAttentionBlock(cfg, pos_len, c,
+                                                use_rope=kw["use_rope"],
+                                                dtype=dtype)
+            elif cls == "TransformerFFNBlock":
+                blk = TransformerFFNBlock(cfg, c, use_swiglu=kw["use_swiglu"],
+                                          dtype=dtype)
             else:
-                raise NotImplementedError(f"block kind {kind!r} is not ported")
+                if kw["use_gab"] and not hasattr(self, "gab_templates"):
+                    # built once, shared by every GAB block
+                    self.gab_templates = GABTemplates(cfg, pos_len)
+                blk = NestedBottleneckTransformerBlock(
+                    cfg, pos_len, kw["internal_length"],
+                    use_swiglu=kw["use_swiglu"], use_rope=kw["use_rope"],
+                    use_gab=kw["use_gab"], fixup_scale=fixup_scale,
+                    dtype=dtype)
             name = f"{cls}_{counts.get(cls, 0)}"
             counts[cls] = counts.get(cls, 0) + 1
             setattr(self, name, blk)
-            self.block_names.append(name)
+            self.blocks.append((name, cls == "NestedBottleneckTransformerBlock"))
+        # intermediate heads: tapped before block intermediate_head_blocks,
+        # or at the trunk end when that is >= the block count
+        # (model_pytorch.py:3510-3521, modelconfigs.py:2107-2108)
+        self.intermediate_at = None
+        if cfg.has_intermediate_head:
+            self.intermediate_at = min(cfg.intermediate_head_blocks,
+                                       num_blocks)
+            self.norm_intermediate_trunkfinal = NormMask(c, use_gamma=True)
+            self.intermediate_policy_head = PolicyHead(cfg, dtype)
+            self.intermediate_value_head = ValueHead(cfg, pos_len)
         self.NormMask_0 = NormMask(c, use_gamma=True)
         self.PolicyHead_0 = PolicyHead(cfg, dtype)
         self.ValueHead_0 = ValueHead(cfg, pos_len)
         self.act = act_fn(actn)
 
-    def forward(self, spatial, global_in, mask=None):
+    def _intermediate(self, x, mask, mask_sum_hw, global_in) -> dict:
+        xi = self.act(self.norm_intermediate_trunkfinal(x, mask))
+        ival = self.intermediate_value_head(xi, mask, mask_sum_hw, global_in)
+        return {"intermediate_policy_logits": self.intermediate_policy_head(
+                    xi, mask, mask_sum_hw),
+                **{f"intermediate_{k}": v for k, v in ival.items()}}
+
+    def forward(self, spatial, global_in, mask=None, metadata=None):
         b, h, w, _ = spatial.shape
         x_in = spatial.permute(0, 3, 1, 2)
         if mask is None:
@@ -350,12 +679,31 @@ class KataGoModel(nn.Module):
         x = self.Conv_0(x_in)
         g = self.Dense_0(global_in.to(self.dtype))
         x = x + g[:, :, None, None]
-        for name in self.block_names:
-            x = x + getattr(self, name)(x, mask, mask_sum_hw)
+        if self.cfg.metadata_encoder:
+            if metadata is None:
+                metadata = torch.zeros((b, 192), dtype=torch.float32,
+                                       device=spatial.device)
+            meta_bias = self.MetadataEncoder_0(metadata)
+            x = x + meta_bias[:, :, None, None].to(self.dtype)
+        gab = None
+        if hasattr(self, "gab_templates"):
+            gab = self.gab_templates(self.pos_len * self.pos_len)
+        inter = {}
+        for i, (name, takes_gab) in enumerate(self.blocks):
+            if i == self.intermediate_at:
+                inter = self._intermediate(x, mask, mask_sum_hw, global_in)
+            blk = getattr(self, name)
+            if takes_gab:
+                x = x + blk(x, mask, mask_sum_hw, gab_templates=gab)
+            else:
+                x = x + blk(x, mask, mask_sum_hw)
+        if self.intermediate_at == len(self.blocks):
+            inter = self._intermediate(x, mask, mask_sum_hw, global_in)
         x = self.act(self.NormMask_0(x, mask))
         policy = self.PolicyHead_0(x, mask, mask_sum_hw)
         return {"policy_logits": policy,
-                **self.ValueHead_0(x, mask, mask_sum_hw, global_in)}
+                **self.ValueHead_0(x, mask, mask_sum_hw, global_in),
+                **inter}
 
 
 def postprocess_outputs(raw: dict) -> dict:

@@ -2,9 +2,8 @@
 (cpp/neuralnet/modelversion.{h,cpp}) — the port's own copy of
 katago_tpu/models/modelversion.py.
 
-Model file versions 3..17 map onto input-feature versions V3..V7. The
-port's featurizer (models/features.py) provides V7, the inputs of model
-versions 8..17; V3..V6 wait for ROADMAP M11.
+Model file versions 3..17 map onto input-feature versions V3..V7, all
+of which the port's featurizer (models/features.py) provides.
 """
 
 from __future__ import annotations

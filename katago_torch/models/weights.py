@@ -5,10 +5,15 @@ parameter tree, and a seeded initializer for runs without JAX.
 state_dict of models.model.KataGoModel: module names match the Flax
 auto-names, conv kernels go HWIO -> OIHW and dense kernels [in, out] ->
 [out, in]. `to_flax_params` is its inverse (the exporter and the tests
-use it). `init_weights` mirrors katago_init (model.py:56 of the JAX
-package): truncated normal with std = scale * gain / sqrt(fan_in) /
-0.8796 at +-2 std, zeros where scale is 0, biases and betas zero, gammas
-one — drawn from a torch.Generator, so the numbers differ from JAX's.
+use it). `init_weights` mirrors the JAX package's initializers: katago_init
+(model.py:56) for conv and dense kernels — truncated normal with std =
+scale * gain / sqrt(fan_in) / 0.8796 at +-2 std, zeros where scale is 0
+— and flax's lecun_normal for the transformer projections (the same law
+at gain 1, scale 1); biases and betas zero, gammas and RMSNorm scales
+one, the GAB frequencies geometric. Draws come from a torch.Generator,
+so the numbers differ from JAX's. The carry-over handles every leaf
+shape: 4-D and 2-D kernels are transposed, 1-D leaves (biases, betas,
+gammas, RMSNorm scales, GAB freqs) copied.
 """
 
 from __future__ import annotations
@@ -86,4 +91,8 @@ def init_weights(model: M.KataGoModel, seed: int) -> M.KataGoModel:
             mod.beta.zero_()
             if mod.gamma is not None:
                 mod.gamma.fill_(1.0)
+        elif isinstance(mod, M.RMSNorm):
+            mod.scale.fill_(1.0)
+        elif isinstance(mod, M.GABTemplates):
+            mod.freqs.copy_(M.GABTemplates.initial_freqs(mod.freqs.numel()))
     return model

@@ -33,14 +33,17 @@ BIG_VISITS = 1 << 30
 class SearchDriver:
     """Chunk-stepped search over a fixed (size, max_nodes, chunk)
     configuration; drives any [G]-batch of games on `device` (CUDA unless
-    the caller names another device). clock: the wall clock the time
-    bounds and callbacks read (time.time unless a test injects one)."""
+    the caller names another device). feature_version: the net's input
+    features (3..7); sgf_meta: the humanSL profile its evaluations are
+    conditioned on (None: none). clock: the wall clock the time bounds
+    and callbacks read (time.time unless a test injects one)."""
 
     def __init__(self, model: torch.nn.Module, sp, *, size: int,
                  max_nodes: int, chunk_size: int = 16, max_depth: int = 64,
                  with_ladders: bool = True, ladder_mode: str = "chase",
                  root_num_symmetries: int = 1, feature_version: int = 7,
-                 device=None, clock: Callable[[], float] = time.time):
+                 sgf_meta=None, device=None,
+                 clock: Callable[[], float] = time.time):
         self.device = resolve_device(device)
         self.model = model
         self.sp = sp
@@ -52,6 +55,7 @@ class SearchDriver:
         self.ladder_mode = ladder_mode
         self.root_num_symmetries = root_num_symmetries
         self.feature_version = feature_version
+        self.sgf_meta = sgf_meta
         self.clock = clock
 
     def _check_device(self, t: torch.Tensor) -> None:
@@ -105,11 +109,10 @@ class SearchDriver:
         prev_tree / prev_actions: reuse the previous search's trees,
         re-rooted at the actions then played (mcts.init_search).
         root_allowed_mask, mirror, track_moves_ownership: the root
-        extras of mcts.init_search / run_playouts. sp: search params
-        for this search instead of the driver's."""
+        extras of mcts.init_search / run_playouts; pattern_bonus: the
+        avoid-repeated-shapes table of mcts.run_playouts. sp: search
+        params for this search instead of the driver's."""
         self._check_device(roots.hist_len)
-        if pattern_bonus is not None:
-            raise NotImplementedError(mcts.PATTERN_BONUS_M9)
         g = roots.hist_len.shape[0]
         if sp is None:
             sp = self.sp
@@ -121,7 +124,8 @@ class SearchDriver:
             root_num_symmetries=self.root_num_symmetries,
             feature_version=self.feature_version, prev_tree=prev_tree,
             prev_actions=prev_actions, root_allowed_mask=root_allowed_mask,
-            mirror=mirror, track_moves_ownership=mo, _root_syms=_root_syms)
+            mirror=mirror, track_moves_ownership=mo, sgf_meta=self.sgf_meta,
+            _root_syms=_root_syms)
 
         if time_rec is not None and max_time is None:
             max_time = time_rec   # refined between chunks below
@@ -140,7 +144,8 @@ class SearchDriver:
                 with_ladders=self.with_ladders, ladder_mode=self.ladder_mode,
                 max_visits=cap, active_mask=amask,
                 feature_version=self.feature_version, mirror=mirror,
-                pattern_bonus=pattern_bonus, track_moves_ownership=mo)
+                pattern_bonus=pattern_bonus, sgf_meta=self.sgf_meta,
+                track_moves_ownership=mo)
 
         t0 = self.clock()
         last_cb = t0

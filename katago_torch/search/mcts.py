@@ -30,7 +30,13 @@ ownership), `extract_pv`, `child_analysis_extras`, and the anti-mirror
 hooks of search/mirror.py (`mirror=`; with None the search runs none of
 their code).
 
-Not ported: the pattern bonus (ROADMAP M9) and SGF metadata (M11).
+Nets: any input-feature version 3..7 (`feature_version`, the net's
+ModelDesc.input_version), and humanSL nets conditioned on an SGF
+metadata profile (`sgf_meta`: each game's row follows its mover). The
+pattern bonus (avoidRepeatedPatternUtility, search/patternbonus.py):
+`run_playouts(pattern_bonus=)` looks each fresh node's move up in a
+host-built table and folds the bonus into the node's utility; with None
+the search runs none of its code.
 """
 
 from __future__ import annotations
@@ -78,10 +84,6 @@ C_PATTERN_BONUS = 17
 NUM_STATS = 18
 
 BIAS_TABLE_SIZE = 2048
-
-PATTERN_BONUS_M9 = ("the pattern bonus (avoidRepeatedPatternUtility) is not "
-                    "ported (ROADMAP M9: search/patternbonus.py, "
-                    "localpattern.py in full)")
 
 
 def child_dt(max_nodes: int):
@@ -713,9 +715,10 @@ def backprop_path(ss: SearchState, sel: PathSel, levels: int, sp,
 
 def insert_and_backup(ss: SearchState, sel: PathSel, levels: int, leaf_pos,
                       leaf_ko_hash, ev: LeafEval, superko_illegal, active, sp,
-                      leaf_laddered, size: int) -> None:
+                      leaf_laddered, size: int, pat_bonus=None) -> None:
     """Allocate each game's leaf node (unless terminal / full / illegal,
-    or linked to a same-key transposition) and back up (in place)."""
+    or linked to a same-key transposition) and back up (in place).
+    pat_bonus: float32[G] pattern bonus of each leaf's move, or None."""
     tree = ss.tree
     dev = tree.visits.device
     g, n = tree.visits.shape
@@ -740,7 +743,7 @@ def insert_and_backup(ss: SearchState, sel: PathSel, levels: int, leaf_pos,
     new_idx = torch.where(can_alloc, tree.num_nodes, n - 1)
 
     lp = sel.leaf_parent
-    leaf_row = leaf_stats_row(ev, 0.0)
+    leaf_row = leaf_stats_row(ev, 0.0 if pat_bonus is None else pat_bonus)
     pol16 = ev.policy.to(POL_DT)
     bias_key = _bias_key(tree.pos.board.stones[gi, lp],
                          tree.pos.recent_moves[gi, lp, 0], sel.leaf_action,
@@ -799,18 +802,27 @@ def insert_and_backup(ss: SearchState, sel: PathSel, levels: int, leaf_pos,
 
 
 def make_nn_evaluator(model, size: int, with_ladders: bool = True,
-                      feature_version: int = 7, ladder_mode: str = "chase"):
+                      feature_version: int = 7, ladder_mode: str = "chase",
+                      sgf_meta=None):
     """Returns batched_eval(leaf_gs, feat_params, sym=None, prev_lad=None)
     -> (raw outputs, legal bool[G, A], laddered bool[G, NN]).
 
     With prev_lad (the cached ladder masks of the boards one and two moves
     back) only the current boards are solved, all games in one batched
-    call of the mode's solver (for "chase", one K1 call on CUDA)."""
+    call of the mode's solver (for "chase", one K1 call on CUDA).
+    feature_version: the net's input-feature version 3..7 (V5 has no
+    ladder planes, so its evaluations solve no ladders). sgf_meta: a
+    humanSL profile (models/sgfmetadata.SGFMetadata); its 192-float row
+    depends on the mover (fillMetadataRow nextPlayerIsWhite), so both
+    rows are built once and each game takes its mover's."""
+    ladders = with_ladders and feature_version != 5
+    meta_rows = None
 
     def batched_eval(leaf_gs, feat_params, sym=None, prev_lad=None):
+        nonlocal meta_rows
         legal = H.legal_moves(leaf_gs, size)
         g = legal.shape[0]
-        if prev_lad is not None and with_ladders:
+        if prev_lad is not None and ladders:
             cur_lad = LAD.batch_solver(ladder_mode)(
                 leaf_gs.pos.board.stones, size,
                 ko_loc=leaf_gs.pos.simple_ko_loc)
@@ -823,16 +835,28 @@ def make_nn_evaluator(model, size: int, with_ladders: bool = True,
             sp_feat, gl_feat = F.fill_features(
                 leaf_gs, size, feat_params, legal, version=feature_version,
                 with_ladders=with_ladders, ladder_mode=ladder_mode)
-        if with_ladders:
+        if ladders:
             laddered = sp_feat[:, :, 14] > 0.5
         else:
             laddered = torch.zeros((g, size * size), dtype=torch.bool,
                                    device=legal.device)
         if sym is not None:
             sp_feat = SYM.transform_spatial(sp_feat, sym, size)
-        sp_feat = sp_feat.reshape(g, size, size, F.NUM_SPATIAL_V7)
+        sp_feat = sp_feat.reshape(g, size, size,
+                                  F.NUM_SPATIAL_BY_VERSION[feature_version])
         with torch.no_grad():
-            raw = model(sp_feat, gl_feat)
+            if sgf_meta is not None:
+                if meta_rows is None:
+                    from katago_torch.models.sgfmetadata import \
+                        fill_metadata_row
+                    meta_rows = torch.from_numpy(np.stack([
+                        fill_metadata_row(sgf_meta, next_player_is_white=w,
+                                          board_area=size * size)
+                        for w in (False, True)])).to(legal.device)
+                rows = meta_rows[(leaf_gs.pos.to_move == B.WHITE).long()]
+                raw = model(sp_feat, gl_feat, metadata=rows)
+            else:
+                raw = model(sp_feat, gl_feat)
         if sym is not None:
             raw = dict(raw)
             raw["policy_logits"] = SYM.untransform_policy(
@@ -1099,7 +1123,7 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
                 ladder_mode: str = "chase", root_num_symmetries: int = 1,
                 feature_version: int = 7, prev_tree: Tree | None = None,
                 prev_actions=None, root_allowed_mask=None, mirror=None,
-                track_moves_ownership: bool = False,
+                track_moves_ownership: bool = False, sgf_meta=None,
                 _root_syms=None) -> SearchState:
     """SearchState for a batch of games (Search::beginSearch): root NN
     eval, Dirichlet noise, dynamic score center, root pruning.
@@ -1117,13 +1141,14 @@ def init_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
     (_root_syms int[n, G] gives them instead: the tests pass the JAX
     fixture's, since a JAX key cannot be reproduced). mirror: the
     anti-mirror verdict (root prior boosts). track_moves_ownership:
-    allocate the per-root-move ownership sums run_playouts fills."""
+    allocate the per-root-move ownership sums run_playouts fills.
+    sgf_meta: the humanSL profile the evaluations are conditioned on."""
     nn = size * size
     dev = roots.pos.to_move.device
     g = roots.pos.to_move.shape[0]
     evaluator = make_nn_evaluator(model, size, with_ladders=with_ladders,
                                   feature_version=feature_version,
-                                  ladder_mode=ladder_mode)
+                                  ladder_mode=ladder_mode, sgf_meta=sgf_meta)
     feat_params = _feature_params(sp)
     tree = empty_tree(size, max_nodes, g, dev)
     root_ko_hash = H._pos_ko_hash(roots.pos, roots.rules)
@@ -1301,7 +1326,7 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
                  max_visits: int | None = None, active_mask=None,
                  max_superko_retries: int = 3,
                  feature_version: int = 7, mirror=None,
-                 pattern_bonus=None,
+                 pattern_bonus=None, sgf_meta=None,
                  track_moves_ownership: bool = False) -> SearchState:
     """Advance every game's search by num_sims playouts (in place).
 
@@ -1311,9 +1336,10 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
     the retries voids its playout. mirror: the anti-mirror verdict
     (descent-time forced exploration, fresh-node prior boosts).
     track_moves_ownership: each leaf eval's ownership is added to its
-    playout's root move (init_search must have allocated the sums)."""
-    if pattern_bonus is not None:
-        raise NotImplementedError(PATTERN_BONUS_M9)
+    playout's root move (init_search must have allocated the sums).
+    pattern_bonus: a patternbonus.PatternBonusArrs table (None: off);
+    each fresh node takes the bonus of its move's 9x9 pattern
+    (patternbonustable.cpp get). sgf_meta: as init_search's."""
     nn = size * size
     a = nn + 1
     g = ss.root_hist_len.shape[0]
@@ -1321,7 +1347,7 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
     gi = torch.arange(g, device=dev)
     evaluator = make_nn_evaluator(model, size, with_ladders=with_ladders,
                                   feature_version=feature_version,
-                                  ladder_mode=ladder_mode)
+                                  ladder_mode=ladder_mode, sgf_meta=sgf_meta)
     feat_params = _feature_params(sp)
     random_sym = bool(sp.nn_random_symmetry)     # one sync, not one a playout
 
@@ -1401,9 +1427,19 @@ def run_playouts(model, ss: SearchState, sp, gen: torch.Generator, *,
                 ss.tree.depth[gi, sel.leaf_parent] + 1,
                 leaf_pos.board.stones, mirror.mirroring, mirror.mirror_pla,
                 mirror.advantage, ss.tree.pos.to_move[:, 0], size)
+        pat_leaf = None
+        if pattern_bonus is not None:
+            # avoid-repeated-shapes bonus of the expansion move, resolved
+            # against the host-built table (patternbonustable.cpp get)
+            from katago_torch.search import patternbonus as PB
+            pat_leaf = PB.lookup(pattern_bonus,
+                                 ss.tree.pos.board.stones[gi, sel.leaf_parent],
+                                 sel.leaf_action.clamp(min=0),
+                                 ss.tree.pos.to_move[gi, sel.leaf_parent],
+                                 size)
         insert_and_backup(ss, sel, levels, leaf_pos, leaf_kh, ev, void,
                           active, sp, leaf_lad if with_ladders else None,
-                          size)
+                          size, pat_bonus=pat_leaf)
         ok = (active & ~void).unsqueeze(-1)
         ss.own_sum = ss.own_sum + torch.where(
             ok, ev.weight.unsqueeze(-1) * ev.ownership, 0.0)
@@ -1432,7 +1468,7 @@ def run_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
                feature_version: int = 7, root_allowed_mask=None,
                root_num_symmetries: int = 1, mirror=None,
                pattern_bonus=None, track_moves_ownership: bool = False,
-               _root_syms=None) -> SearchResult:
+               sgf_meta=None, _root_syms=None) -> SearchResult:
     """One-shot search: init (with optional tree reuse), exactly num_sims
     playouts under the max_visits cap, then the results. The root
     extras are those of init_search and run_playouts."""
@@ -1443,12 +1479,13 @@ def run_search(model, roots: H.GameState, sp, gen: torch.Generator, *,
                      root_allowed_mask=root_allowed_mask,
                      root_num_symmetries=root_num_symmetries, mirror=mirror,
                      track_moves_ownership=track_moves_ownership,
-                     _root_syms=_root_syms)
+                     sgf_meta=sgf_meta, _root_syms=_root_syms)
     run_playouts(model, ss, sp, gen, size=size, num_sims=num_sims,
                  max_depth=max_depth, with_ladders=with_ladders,
                  ladder_mode=ladder_mode, max_visits=max_visits,
                  active_mask=active_mask, feature_version=feature_version,
                  mirror=mirror, pattern_bonus=pattern_bonus,
+                 sgf_meta=sgf_meta,
                  track_moves_ownership=track_moves_ownership)
     return collect_results(ss)
 

@@ -118,9 +118,16 @@ def postprocess(raw: dict) -> dict:
 def compute_losses(raw: dict, batch: dict, *,
                    scales: LossScales = LossScales(),
                    seki_ema: SekiEma | None = None,
-                   is_training: bool = True,
+                   is_training: bool = True
                    ) -> tuple[torch.Tensor, dict, SekiEma]:
     """All reference loss terms for one batch.
+
+    When `raw` carries intermediate-head outputs (intermediate_* keys,
+    has_intermediate_head models) the same term set is computed on them
+    (without the seki moving-average update, metrics_pytorch.py:461-484)
+    and the total becomes scales.main_loss_scale * main +
+    scales.intermediate_loss_scale * intermediate, as the JAX package
+    computes it.
 
     batch keys (reference npz schema, float-decoded, float32 tensors):
       binaryInputNCHW  [B, 22, H, W]   (only channel 0, the mask, read)
@@ -131,13 +138,7 @@ def compute_losses(raw: dict, batch: dict, *,
                                         futurepos, scoring raw int8)
       qValueTargetsNCMove [B, 3, A]    (raw int16 scale)
 
-    Returns (total_loss_mean, metrics, new_seki_ema). Outputs of
-    intermediate heads (intermediate_* keys) raise NotImplementedError:
-    the port's net has none."""
-    if any(k.startswith("intermediate_") for k in raw):
-        raise NotImplementedError(
-            "intermediate-head losses are not ported (the port's net has "
-            "no intermediate heads)")
+    Returns (total_loss_mean, metrics, new_seki_ema)."""
     pp = postprocess(raw)
     dev = pp["value_logits"].device
     if seki_ema is None:
@@ -414,4 +415,17 @@ def compute_losses(raw: dict, batch: dict, *,
             (torch.argmax(pol[:, 0, :], -1) ==
              torch.argmax(target_policy_player, -1)).float()) / nsum,
     }
-    return total / nsum, metrics, ema
+    total_mean = total / nsum
+    if any(k.startswith("intermediate_") for k in raw):
+        inter_raw = {k[len("intermediate_"):]: v for k, v in raw.items()
+                     if k.startswith("intermediate_")}
+        itotal, imetrics, _ = compute_losses(
+            inter_raw, batch, scales=scales, seki_ema=seki_ema,
+            is_training=False)
+        metrics["intermediate_loss"] = itotal
+        metrics["intermediate_policy_loss"] = imetrics["policy_loss"]
+        metrics["intermediate_value_loss"] = imetrics["value_loss"]
+        total_mean = (scales.main_loss_scale * total_mean
+                      + scales.intermediate_loss_scale * itotal)
+        metrics["loss"] = total_mean
+    return total_mean, metrics, ema

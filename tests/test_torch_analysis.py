@@ -86,7 +86,7 @@ def test_report_perspective_and_refusals():
                - 1.0) < 1e-6
     eng = A.AnalysisEngine(MODEL, device="cpu")
     r = eng.handle(dict(q, overrideSettings={"humanSLProfile": "rank_1d"}))
-    assert "M11" in r[-1]["error"]
+    assert "metadata-encoder net" in r[-1]["error"]
     r = A.AnalysisEngine(None, device="cpu").handle(q)
     assert r[-1]["error"].startswith("no model loaded")
     if not torch.cuda.is_available():

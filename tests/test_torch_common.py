@@ -477,6 +477,119 @@ def write_tiny_model(path, version: int, seed: int) -> None:
         f.write(" ".join(toks).encode("ascii"))
 
 
+def write_tiny_transformer_model(path, seed: int, spatial_rms: bool = True
+                                 ) -> None:
+    """A small version-17 transformer net in the reference's text float
+    format with what the JAX exporter cannot write: a grouped-query
+    attention block with learnable RoPE (4 heads over 2 KV heads), a
+    SwiGLU FFN, an attention block with fixed RoPE (theta 50), a plain
+    (relu) FFN, and the trunk-tip RMSNorm (trunk norm kind 1; spatial or
+    per-position by spatial_rms)."""
+    import gzip
+    rng = np.random.default_rng(seed)
+    tc, ffn, gc, pc, vc, v2 = 16, 24, 4, 4, 4, 6
+    toks = []
+
+    def t(*xs):
+        toks.extend(str(x) for x in xs)
+
+    def floats(*shape, scale=0.2, offset=0.0):
+        w = offset + rng.standard_normal(shape).astype(np.float32) * scale
+        toks.extend(repr(float(x)) for x in w.reshape(-1))
+
+    def conv(name, k, ic, oc):
+        t(name, k, k, ic, oc, 1, 1)
+        floats(k, k, ic, oc)
+
+    def bn(name, c):
+        t(name, c, 1e-5, 1, 1)
+        floats(c)
+        toks.extend(repr(float(v)) for v in 0.5 + rng.random(c))
+        floats(c)
+        floats(c)
+
+    def act(name, kind="ACTIVATION_RELU"):
+        t(name, kind)
+
+    def matmul(name, ic, oc, scale=0.2):
+        t(name, ic, oc)
+        floats(ic, oc, scale=scale)
+
+    def matbias(name, c):
+        t(name, c)
+        floats(c)
+
+    def trms(name, c):
+        t(name, c, 1e-6)
+        floats(c, scale=0.1, offset=1.0)
+
+    def attention(name, nh, nkv, learnable):
+        qd = tc // nh
+        t("transformer_attention_block", name, nh, nkv, qd, qd, 1,
+          1 if learnable else 0)
+        trms(name + ".norm", tc)
+        matmul(name + ".q", tc, nh * qd, 0.4)
+        matmul(name + ".k", tc, nkv * qd, 0.4)
+        matmul(name + ".v", tc, nkv * qd)
+        matmul(name + ".out", nh * qd, tc)
+        if learnable:
+            t(name + ".rope_freqs", nkv, qd // 2, 2)
+            floats(nkv, qd // 2, 2, scale=0.5)
+        else:
+            t(name + ".rope_theta", 50.0)
+
+    def ffn_block(name, swiglu):
+        t("transformer_ffn_block", name, tc, ffn, 1 if swiglu else 0)
+        trms(name + ".norm", tc)
+        matmul(name + ".l1", tc, ffn)
+        if swiglu:
+            matmul(name + ".lg", tc, ffn)
+        matmul(name + ".l2", ffn, tc)
+
+    t("tinytf", 17, 22, 19)
+    t(20.0, 20.0, 20.0, 20.0, 40.0, 0.25, 30.0)
+    t(0, 0, 0, 0, 0, 0, 0, 0)         # metaEncoderVersion, passAlive, 6 rsv
+    t("trunk", 4, tc, tc, tc, 0, gc)
+    t(1, 0, 0, 0, 0, 0)               # trunk norm kind 1 (RMSNorm) + 5 rsv
+    conv("initconv", 3, 22, tc)
+    matmul("initmm", 19, tc)
+    attention("attn1", 4, 2, learnable=True)
+    ffn_block("ffn1", swiglu=True)
+    attention("attn2", 2, 2, learnable=False)
+    ffn_block("ffn2", swiglu=False)
+    t("trunkrms", tc, 1e-6, 1 if spatial_rms else 0, 0)
+    floats(tc, scale=0.1, offset=1.0)                   # gamma
+    floats(tc, scale=0.1)                               # beta
+    act("tipact", "ACTIVATION_MISH")
+    t("policyhead", 4, 0, 0, 0)
+    conv("p1conv", 1, tc, pc)
+    conv("g1conv", 1, tc, gc)
+    bn("g1bn", gc)
+    act("g1act")
+    matmul("g2b", 3 * gc, pc)
+    bn("p1bn", pc)
+    act("p1act")
+    conv("p2conv", 1, pc, 4)
+    matmul("gpass", 3 * gc, 4)
+    matbias("passbias", 4)
+    act("passact", "ACTIVATION_SILU")
+    matmul("gpass2", 4, 4)
+    t("valuehead", 0, 0, 0)
+    conv("v1conv", 1, tc, vc)
+    bn("v1bn", vc)
+    act("v1act")
+    matmul("v2mul", 3 * vc, v2)
+    matbias("v2bias", v2)
+    act("v2act")
+    matmul("v3mul", v2, 3)
+    matbias("v3bias", 3)
+    matmul("sv3mul", v2, 6)
+    matbias("sv3bias", 6)
+    conv("ownconv", 1, vc, 1)
+    with gzip.GzipFile(path, "wb", mtime=0) as f:   # stable sha256
+        f.write(" ".join(toks).encode("ascii"))
+
+
 def desc_inputs(version: int, size: int, b: int, seed: int):
     """Seeded spatial [b, size, size, C] and global [b, G] inputs of a
     version's input planes, and a mask with the last row off-board."""
@@ -631,3 +744,179 @@ def mirror_history(size, n_pairs):
         moves += [b, mirror_loc(b)]
         plas += [1, 2]
     return moves, plas
+
+
+# ---- net families (tools/make_torch_fixtures.py models / nets_train /
+# desc_tf makers; tests/test_torch_nets.py) -------------------------------
+
+_NET_BASE = dict(trunk_num_channels=12, mid_num_channels=8,
+                 gpool_num_channels=4, p1_num_channels=4, g1_num_channels=4,
+                 v1_num_channels=4, v2_size=8, sbv2_num_channels=8,
+                 num_scorebeliefs=2)
+_TF = dict(version=17, transformer_ffn_channels=16, transformer_heads=3,
+           transformer_kv_heads=3)
+_GAB = dict(gab_num_templates=6, gab_num_fourier_features=4,
+            gab_mlp_hidden=10, gab_d1=6, gab_d2=5)
+
+# one small config per block kind and extra: ModelConfig fields (the
+# name is the key); head dims are multiples of 4 for the 2-D RoPE
+NET_KINDS = {
+    "bottle": dict(_NET_BASE,
+                   block_kind=("bottle1", "bottle2gpool", "bottle3")),
+    "attn_ffn": dict(_NET_BASE, **_TF,
+                     block_kind=("attn", "ffng", "attnrope", "ffnsg")),
+    "qknorm_gqa": dict(_NET_BASE, **dict(_TF, transformer_heads=4,
+                                         transformer_kv_heads=2),
+                       trunk_num_channels=16, attention_qk_norm=True,
+                       block_kind=("attnrope", "ffnsg", "attnrope", "ffng")),
+    "nbttf_rope": dict(_NET_BASE, **dict(_TF, transformer_heads=2,
+                                         transformer_kv_heads=2),
+                       block_kind=("bottlenest2transformerropesg",
+                                   "regulargpool")),
+    "nbttf_gab": dict(_NET_BASE, **dict(_TF, transformer_heads=2,
+                                        transformer_kv_heads=1), **_GAB,
+                      block_kind=("bottlenest2transformergabsg",) * 2),
+    "metadata": dict(_NET_BASE, metadata_encoder=True,
+                     metadata_encoder_channels=10,
+                     block_kind=("regular", "bottlenest2gpool")),
+    "intermediate_mid": dict(_NET_BASE, has_intermediate_head=True,
+                             intermediate_head_blocks=1,
+                             block_kind=("regular", "regulargpool")),
+    "intermediate_end": dict(_NET_BASE, has_intermediate_head=True,
+                             intermediate_head_blocks=2,
+                             block_kind=("regular", "regulargpool")),
+}
+
+# the trainer's net family case: nbttf-GAB with QK-norm GQA and a
+# mid-trunk intermediate head (its losses, gradients and steps)
+NET_TRAIN = dict(_NET_BASE, **dict(_TF, transformer_heads=2,
+                                   transformer_kv_heads=1), **_GAB,
+                 trunk_num_channels=16, attention_qk_norm=True,
+                 has_intermediate_head=True, intermediate_head_blocks=1,
+                 block_kind=("bottlenest2transformergabsg", "regulargpool",
+                             "attnrope", "ffnsg"))
+
+
+def net_config(module, kind: str, fields: dict | None = None):
+    """A NET_KINDS (or given) config as `module`.ModelConfig."""
+    return module.ModelConfig(name=kind, **(fields or NET_KINDS[kind]))
+
+
+def net_params(cfg, size: int, seed: int) -> dict:
+    """Seeded random Flax params of KataGoModel(cfg) (the dict under
+    "params"), numpy leaves, shaped by jax.eval_shape: kernels
+    N(0, 1/fan_in), gammas and RMSNorm scales 1 + N(0, 0.01), GAB
+    frequencies geometric times 1 + N(0, 0.01), biases and betas
+    N(0, 0.01)."""
+    from katago_tpu.models.model import KataGoModel
+    module = KataGoModel(cfg, pos_len=size, dtype=jnp.float32)
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, size, size, 22)),
+                            jnp.zeros((1, 19)))["params"]
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        z = rng.standard_normal(leaf.shape).astype(np.float32)
+        name = jax.tree_util.keystr(path)
+        if len(leaf.shape) >= 2:
+            return z / np.float32(np.sqrt(np.prod(leaf.shape[:-1])))
+        if name.endswith(("['gamma']", "['scale']")):
+            return 1.0 + 0.1 * z
+        if name.endswith("['freqs']"):
+            geo = np.exp(np.linspace(0.0, np.log(1.0 / 50.0), leaf.shape[0]))
+            return (geo * (1.0 + 0.1 * z)).astype(np.float32)
+        return 0.1 * z
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def net_inputs(size: int, b: int, seed: int):
+    """Seeded spatial [b, size, size, 22], global [b, 19], a mask with the
+    last row of every board but the first off-board, and metadata
+    [b, 192]."""
+    rng = np.random.default_rng(seed)
+    sp = (rng.random((b, size, size, 22)) < 0.3).astype(np.float32)
+    gl = rng.standard_normal((b, 19)).astype(np.float32)
+    mask = np.ones((b, size, size, 1), np.float32)
+    mask[1:, -1] = 0.0
+    sp[..., 0] = mask[..., 0]
+    meta = rng.standard_normal((b, 192)).astype(np.float32)
+    return sp, gl, mask, meta
+
+
+# ---- humanSL, V3-V6 and pattern-bonus sessions (tools/make_torch_
+# fixtures.py humansl, vnets and pattern_search makers;
+# tests/test_torch_humansl.py) ----------------------------------------------
+
+HUMANSL_MODEL = "humansl_b1c6.bin.gz"   # b1c6 + metadata encoder, seeded
+HUMANSL_SIZE = 9
+
+HUMANSL_GTP_CONFIG = """# humanSL GTP config: profile and avoid-repeated-shapes
+maxVisits = 8
+humanSLProfile = rank_5d
+avoidRepeatedPatternUtility = 0.3
+rootNoiseEnabled = false
+"""
+
+HUMANSL_GTP_SCRIPT = "\n".join([
+    "boardsize 9", "play b E5", "play w C3", "play b G7", "play w C7",
+    "genmove b", "genmove w", "kata-raw-human-nn", "kata-raw-nn",
+    "kata-get-models", "undo", "kata-raw-human-nn", "quit"]) + "\n"
+
+HUMANSL_ANALYSIS_SCRIPT = "\n".join(__import__("json").dumps(q) for q in [
+    {"id": "h1", "moves": [["B", "E5"], ["W", "C3"]], "boardXSize": 9,
+     "maxVisits": 8, "includePolicy": True,
+     "overrideSettings": {"humanSLProfile": "rank_5d"}},
+    {"id": "h2", "moves": [["B", "E5"]], "boardXSize": 9, "maxVisits": 6,
+     "overrideSettings": {"humanSLProfile": "preaz_9d"}},
+    {"id": "h3", "moves": [["B", "C3"]], "boardXSize": 9, "maxVisits": 6},
+]) + "\n"
+
+_SGFMETA = {"inverseBRank": 5, "inverseWRank": 4, "bIsHuman": True,
+            "wIsHuman": True, "gameRatednessIsUnknown": True,
+            "tcIsByoYomi": True, "mainTimeSeconds": 1200,
+            "periodTimeSeconds": 30, "byoYomiPeriods": 5,
+            "gameDate": "2021-03-01", "source": 2}
+
+HUMANSL_SERVER_SCRIPT = "\n".join(__import__("json").dumps(q) for q in [
+    {"command": "start", "board_x_size": 9, "board_y_size": 9,
+     "rules": "japanese"},
+    {"command": "play", "pla": 1, "loc": 40},
+    {"command": "play", "pla": 2, "loc": 20},
+    {"command": "get_model_outputs", "sgfmeta": _SGFMETA},
+    {"command": "undo"},
+    {"command": "get_model_outputs", "sgfmeta": dict(
+        _SGFMETA, inverseWRank=12, source=1, tcIsByoYomi=False)},
+    {"command": "redo"},
+    {"command": "get_model_outputs", "sgfmeta": {}},
+    {"command": "frobnicate"},
+    {"command": "start", "board_x_size": 9, "board_y_size": 7},
+]) + "\n"
+
+# tiny reference nets of model versions 3, 5, 6, 7 (input features V3,
+# V4, V5, V6; write_tiny_model(path, version, seed=version))
+VNET_VERSIONS = (3, 5, 6, 7)
+VNET_SIZE = 5
+VNET_GTP_SCRIPT = "\n".join([
+    "boardsize 5", "play b C3", "play w B2", "genmove b", "genmove w",
+    "kata-get-models", "quit"]) + "\n"
+VNET_ANALYSIS_SCRIPT = __import__("json").dumps(
+    {"id": "v", "moves": [["B", "C3"], ["W", "B2"]], "boardXSize": 5,
+     "maxVisits": 8, "reportDuringSearchEvery": 1e-6}) + "\n"
+
+# the pattern-bonus search: one 5x5 game's moves before the root, moves
+# the root player made from the root position before (as a table loaded
+# from earlier games holds them: on 5x5 the 9x9 window covers the whole
+# board, so a game's own earlier shapes never recur), and the
+# avoidRepeatedPatternUtility of the table built from both
+PATTERN_MOVES = [12, 6, 8, 16, 18, 7, 11, 13, 17]
+PATTERN_REPEAT = [23, 0, 21]
+PATTERN_UTILITY = 0.5
+
+
+def pattern_history(boards: list, plas: list, root_board, pla_for: int):
+    """(boards before, moves, movers) of the pattern table: the game's
+    moves, then PATTERN_REPEAT played by pla_for from the root board."""
+    k = len(PATTERN_REPEAT)
+    return (boards + [root_board] * k, PATTERN_MOVES + PATTERN_REPEAT,
+            plas + [pla_for] * k)

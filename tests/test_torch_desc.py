@@ -7,6 +7,7 @@ output's largest value) for every key and version
 (tests/data/torch_ref/desc.npz)."""
 
 import dataclasses
+import gzip
 
 import numpy as np
 import pytest
@@ -121,15 +122,20 @@ def test_descnet_equals_katago_model_on_the_exported_weights():
 
 
 def test_unported_blocks_raise_and_bad_files_fail_alike(tiny_dir, tmp_path):
-    desc = TD.load_model(str(tiny_dir / "v15.txt.gz"))
-    for kind in ("attention", "ffn"):
-        d = dataclasses.replace(desc, trunk=dict(desc.trunk, blocks=[
-            {"kind": kind, "name": "t0"}]))
-        with pytest.raises(NotImplementedError, match="M11"):
-            TD.DescNet(d)
-    with pytest.raises(NotImplementedError, match="M11"):
-        TD.DescNet(dataclasses.replace(desc, trunk=dict(
-            desc.trunk, meta_encoder={"name": "m"})))
+    """Transformer blocks, the trunk-tip RMSNorm and the metadata encoder
+    build (tests/test_torch_nets.py holds them against JAX); a block
+    kind the format lacks and a truncated file fail alike in both
+    parsers."""
+    C.write_tiny_transformer_model(tmp_path / "tf.txt.gz", seed=1)
+    net = TD.DescNet(TD.load_model(str(tmp_path / "tf.txt.gz")))
+    assert [b["kind"] for b in net.blocks] == ["attention", "ffn"] * 2
+    assert net.final_rms is not None and net.final_bn is None
+    unknown = tmp_path / "unknown.txt"
+    text = gzip.decompress((tiny_dir / "v15.txt.gz").read_bytes()).decode()
+    unknown.write_text(text.replace("ordinary_block", "dilated_block", 1))
+    for mod in (JD, TD):
+        with pytest.raises(mod.ModelParseError, match="unsupported block"):
+            mod.load_model(str(unknown))
     bad = tmp_path / "bad.txt"
     bad.write_text("net 2 22 19 trunk")
     for mod in (JD, TD):

@@ -117,8 +117,13 @@ def test_refused_arguments(model):
     d = driver(model)
     with pytest.raises(ValueError, match="visit cap"):
         d.search(roots(), gen())
-    with pytest.raises(NotImplementedError, match="M9"):
-        d.search(roots(), gen(), max_visits=4, pattern_bonus=object())
+    # a pattern-bonus table (once refused) is taken; one whose keys match
+    # no move leaves every node's bonus at zero
+    from katago_torch.search import patternbonus as PB
+    empty = PB.PatternBonusTable().to_arrays("cpu")
+    res = d.search(roots(), gen(), max_visits=4, pattern_bonus=empty)
+    assert int(res.root_visits[0]) == 4
+    assert not bool(res.ss.tree.stats[..., 17].any())
     from katago_torch import _tensortree as T
     with pytest.raises(ValueError, match="driver runs on"):
         d.search(T.tree_map(lambda t: t.to("meta"), roots()), gen(),
@@ -191,9 +196,12 @@ def test_async_search_stop_returns_a_reusable_tree(model):
 
 
 def test_async_search_reraises_its_error(model):
+    """An error in the background search (here a root mask of the wrong
+    shape) is raised again by stop()."""
+    bad_mask = torch.ones((1, 3), dtype=torch.bool)
     bg = AsyncSearch(driver(model), roots(), gen(), max_visits=8,
-                     pattern_bonus=object())
-    with pytest.raises(NotImplementedError, match="M9"):
+                     root_allowed_mask=bad_mask)
+    with pytest.raises(RuntimeError):
         bg.stop()
 
 

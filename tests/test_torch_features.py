@@ -1,7 +1,7 @@
-"""The port's V7 featurizer vs katago_tpu.models.features.fill_features in
+"""The port's featurizer vs katago_tpu.models.features.fill_features in
 chase mode with cached ladder inputs (the search evaluator's path), on
 seeded random 9x9 games under area and territory rules: spatial planes
-exact, globals within 1e-6. The games are played on the port and handed
+exact, globals within 1e-6; the older versions V3-V6 bit for bit. The games are played on the port and handed
 to JAX as the same GameState (test_torch_board.py holds the stepping
 itself against JAX)."""
 
@@ -10,6 +10,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from katago_tpu.game import ladder as JL
@@ -88,12 +89,42 @@ def test_fill_features_v7_exact_mode_matches_jax():
 
 
 def test_fill_features_rejects_unported_versions():
+    """Versions outside 3..7 and unknown ladder modes raise ValueError,
+    as in the JAX package (every version it has is ported)."""
     gs = TH.new_game(SIZE, C.RULESETS["tromp_taylor"][1], 8, g=1,
                      device="cpu")
     legal = TH.legal_moves(gs, SIZE)
     params = TF.FeatureParams.default("cpu")
     import pytest
-    with pytest.raises(NotImplementedError):
-        TF.fill_features(gs, SIZE, params, legal, version=6)
+    for v in (2, 8):
+        with pytest.raises(ValueError, match="version"):
+            TF.fill_features(gs, SIZE, params, legal, version=v)
     with pytest.raises(ValueError):
         TF.fill_features(gs, SIZE, params, legal, ladder_mode="greedy")
+    assert sorted(TF.NUM_SPATIAL_BY_VERSION) == [3, 4, 5, 6, 7]
+    assert TF.NUM_SPATIAL_BY_VERSION == JF.NUM_SPATIAL_BY_VERSION
+    assert TF.NUM_GLOBAL_BY_VERSION == JF.NUM_GLOBAL_BY_VERSION
+
+
+VERSIONS_REF, VERSIONS_META = C.load_ref("features_versions")
+
+
+@pytest.mark.parametrize("version", VERSIONS_META["versions"])
+def test_fill_features_older_versions_match_jax(version):
+    """V3-V6 planes and globals bit for bit against JAX fill_features
+    (chase ladders, no cached masks) on the features fixture's games
+    (tests/data/torch_ref/features_versions.npz)."""
+    t_gs = None
+    for rules, g, n, seed, pp in VERSIONS_META["games"]:
+        t = C.random_games_torch(SIZE, g, n, rules, seed, pass_prob=pp)
+        t_gs = t if t_gs is None else C.tree_cat(t_gs, t)
+    params = TF.FeatureParams(*(torch.tensor(v)
+                                for v in VERSIONS_META["feature_params"]))
+    sp, gl = TF.fill_features(t_gs, SIZE, params, TH.legal_moves(t_gs, SIZE),
+                              version=version, ladder_mode="chase")
+    want_sp = VERSIONS_REF[f"v{version}/spatial"]
+    want_gl = VERSIONS_REF[f"v{version}/global"]
+    assert sp.shape[-1] == TF.NUM_SPATIAL_BY_VERSION[version]
+    assert gl.shape[-1] == TF.NUM_GLOBAL_BY_VERSION[version]
+    np.testing.assert_array_equal(C.to_np(sp), want_sp)
+    np.testing.assert_array_equal(C.to_np(gl), want_gl)

@@ -5,7 +5,7 @@ searches, clocks only through kata-debug-print-tc) and a session through
 gtp.main with a config file. Status, moves and every other token exact;
 tokens that are decimals within 1e-4. Then what the transcripts cannot
 show: the device rule, the default net, pondering, loadsgf/printsgf and
-the humanSL refusal."""
+the humanSL profile's need of a metadata-encoder net."""
 
 import io
 
@@ -127,6 +127,14 @@ def test_printsgf_then_loadsgf_round_trip(tmp_path):
 
 
 def test_human_sl_profile_is_refused():
-    with pytest.raises(NotImplementedError, match="M11"):
+    """humanSLProfile needs a metadata-encoder net, as in the JAX engine
+    (tests/test_torch_humansl.py serves one); unknown profiles raise."""
+    with pytest.raises(ValueError, match="metadata-encoder net"):
         G.GTPEngine(model_path=MODEL, size=9, device="cpu",
                     human_sl_profile="rank_9d")
+    with pytest.raises(ValueError, match="unknown humanSL profile"):
+        G.GTPEngine(model_path=MODEL, size=9, device="cpu",
+                    human_sl_profile="rank_10d")
+    eng = G.GTPEngine(model_path=MODEL, size=9, device="cpu")
+    out = session(eng, "kata-raw-human-nn\nquit\n")
+    assert out[0].startswith("? ") and "humanSLProfile" in out[0]

@@ -74,9 +74,21 @@ def test_seeded_init_is_deterministic_and_finite():
 
 
 def test_unported_block_kinds_raise():
+    """Every block kind of the JAX package builds (the v17 transformer
+    preset here; tests/test_torch_nets.py holds each kind against JAX);
+    a kind neither package has raises ValueError in both."""
     cfg = JC.get_config("b5c48h3tfr")
     import dataclasses
     tcfg = TC.ModelConfig(**{f.name: getattr(cfg, f.name)
                              for f in dataclasses.fields(cfg)})
-    with pytest.raises(NotImplementedError):
-        TM.KataGoModel(tcfg, 9)
+    model = TW.init_weights(TM.KataGoModel(tcfg, 9, torch.float32), seed=1)
+    assert model.TransformerAttentionBlock_4.use_rope
+    x = torch.zeros((2, 9, 9, 22))
+    x[..., 0] = 1.0
+    with torch.no_grad():
+        out = model(x, torch.zeros((2, 19)))
+    assert out["policy_logits"].shape == (2, 8, 82)
+    assert all(torch.isfinite(v).all() for v in out.values())
+    bad = dataclasses.replace(tcfg, block_kind=("bottle4",))
+    with pytest.raises(ValueError, match="unsupported block kind"):
+        TM.KataGoModel(bad, 9)

@@ -23,6 +23,15 @@ on seeded matrices up to 864x96 by direction (cosine >= 0.98) and norm
 (within 5%), and the Muon steps' gradient-only state (momentum, Adam
 moments, counts) within 1e-5. The learning rate, the Muon/Adam split
 and the state shapes are exact.
+
+The net families (tests/data/torch_ref/nets_train.npz): an nbttf-GAB net
+with QK-norm GQA and a mid-trunk intermediate head, its loss terms (the
+intermediate set included) within 1e-5 relative, its gradients as
+above, and one sgd and one normuon step (Newton-Schulz in float32) held
+by the new parameters: each update within 1e-5 (sgd) or 1e-3 (normuon)
+of its tensor's largest update plus 1e-6 of the net's largest, plus one
+float32 spacing of the parameter (an RMSNorm scale near 1 rounds its
+small update).
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ import torch
 from katago_tpu.dataio import trainingwrite as JTW
 from katago_tpu.train import schedules as JSCH
 from katago_torch.cli import train_cmd as TCMD
+from katago_torch.models import config as TMC
+from katago_torch.models import model as TM
 from katago_torch.models import weights as TWT
 from katago_torch.train import checkpoint as TCK
 from katago_torch.train import losses as TL
@@ -120,10 +131,82 @@ def test_loss_terms_and_seki_ema_match_jax(is_training):
         assert ema is seki_in
 
 
+def _net_train():
+    """The NET_TRAIN net (nbttf-GAB, QK-norm GQA, a mid-trunk
+    intermediate head) with the nets_train fixture's weights."""
+    arrays, meta = C.load_ref("nets_train")
+    model = TM.KataGoModel(C.net_config(TMC, "net_train", C.NET_TRAIN),
+                           SIZE, torch.float32)
+    model.load_state_dict(TWT.from_flax_params(C.flax_tree(arrays, "w")))
+    return model.eval(), arrays, meta
+
+
 def test_intermediate_head_losses_raise():
-    raw = {"intermediate_policy_logits": torch.zeros(1)}
-    with pytest.raises(NotImplementedError):
-        TL.compute_losses(raw, {})
+    """The intermediate-head term set (once refused): the NET_TRAIN net's
+    loss terms, the intermediate metrics and the seki EMA against JAX
+    compute_losses (tests/data/torch_ref/nets_train.npz)."""
+    model, arrays, meta = _net_train()
+    seki_in = TL.SekiEma(torch.tensor(meta["seki_in"][0]),
+                         torch.tensor(meta["seki_in"][1]))
+    total, metrics, ema = _losses(model, _batch(), True, seki_in)
+    ref = {k.split("/", 1)[1]: v for k, v in arrays.items()
+           if k.startswith("m/")}
+    assert {"intermediate_loss", "intermediate_policy_loss",
+            "intermediate_value_loss"} <= set(ref)
+    assert sorted(metrics) == sorted(ref)
+    for k, r in ref.items():
+        np.testing.assert_allclose(metrics[k].detach().numpy(), r,
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(total.detach().numpy(), ref["loss"],
+                               rtol=1e-5)
+    np.testing.assert_allclose([ema.sum.item(), ema.weight.item()],
+                               arrays["seki"], rtol=1e-6)
+
+
+def test_net_family_gradients_match_jax():
+    """Gradients of the NET_TRAIN total loss (both heads) by every
+    parameter, the transformer projections, RMSNorm scales, GAB freqs
+    and intermediate heads included, within the module's tolerance."""
+    model, arrays, meta = _net_train()
+    seki_in = TL.SekiEma(torch.tensor(meta["seki_in"][0]),
+                         torch.tensor(meta["seki_in"][1]))
+    total, _, _ = _losses(model, _batch(), True, seki_in)
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(total, [p for _, p in
+                                        model.named_parameters()])
+    _close(C.flat_flax(dict(zip(names, grads)), "grad"),
+           _sub(arrays, "grad"), 1e-5, "grad")
+
+
+@pytest.mark.parametrize("kind", ["sgd", "normuon"])
+def test_net_family_optimizer_step_matches_jax(kind, monkeypatch):
+    """One step from the NET_TRAIN weights with the JAX gradients: the
+    sgd loop and normuon (Newton-Schulz in float32 on both sides) take
+    the 2-D projections and 1-D leaves as the JAX optimizers do."""
+    model, arrays, meta = _net_train()
+    if kind != "sgd":
+        monkeypatch.setattr(TMUON, "NS_DTYPE", torch.float32)
+    params = dict(model.state_dict())
+    grads = TWT.from_flax_params(C.flax_tree(arrays, "grad"))
+    opt = TSTEP.make_optimizer(lr=meta["lr"], kind=kind)
+    upd, _ = opt.update(grads, opt.init(params), params)
+    got = C.flat_flax({k: v + upd[k] for k, v in params.items()}, "p")
+    start = C.flat_flax(params, "p")
+    tag = kind if kind == "sgd" else f"{kind}_f32"
+    want = {"p/" + k.split("/", 2)[2]: v
+            for k, v in _sub(arrays, f"{tag}/p0").items()}
+    # updates within rel of each tensor's largest update plus 1e-6 of the
+    # largest of all, and one float32 spacing of the parameter itself (a
+    # parameter near 1, such as an RMSNorm scale, rounds its update)
+    rel = 1e-5 if kind == "sgd" else 1e-3
+    assert sorted(got) == sorted(want)
+    upd_ref = {k: w - start[k] for k, w in want.items()}
+    tree_max = max(float(np.abs(u).max()) for u in upd_ref.values())
+    for k, w in want.items():
+        tol = rel * float(np.abs(upd_ref[k]).max()) + 1e-6 * tree_max + \
+            float(np.spacing(np.abs(w).max().astype(np.float32)))
+        err = float(np.abs(got[k] - w).max())
+        assert err <= tol, (kind, k, err, tol)
 
 
 def test_gradients_of_total_loss_match_jax():

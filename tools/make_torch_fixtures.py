@@ -57,6 +57,28 @@ Fixtures:
                 b1c6_s3.bin.gz (visit-bounded searches only), and a
                 second one through gtp.main with a config file
   analysis      scripted 5x5 analysis-engine sessions on b1c6_s3.bin.gz
+  model_shapes  (JSON) every preset's Flax parameter shapes (eval_shape)
+  nets          a float32 forward of each tests.test_torch_common.NET_KINDS
+                net (bottle1-3, attn/ffn, QK-norm GQA, nbttf with RoPE
+                and with GAB, the metadata encoder, both intermediate-head
+                variants) with seeded weights
+  nets_train    compute_losses, gradients and one sgd and one normuon
+                step of NET_TRAIN (intermediate head, nbttf-GAB, QK-norm)
+  desc_tf       apply_desc_model on v17 files: the JAX exporter's attn/ffn
+                (fixed RoPE) and metadata-encoder files of the nets
+                weights, and write_tiny_transformer_model's (learnable
+                RoPE, trunk-tip RMSNorm, spatial and not), which the JAX
+                exporter cannot write
+  features_versions  fill_features at versions 3-6 (chase ladders) on the
+                features games
+  pattern_search  a 5x5 search with and without an avoid-repeated-shapes
+                table (its game's moves and moves made before from its
+                root position)
+  humansl       writes humansl_b1c6.bin.gz, then the JAX GTP (main with a
+                humanSLProfile and avoidRepeatedPatternUtility config),
+                analysis and humanslnet_server sessions on it
+  vnets         GTP and analysis sessions on the tiny nets of model
+                versions 3, 5, 6, 7 (input features V3-V6)
 """
 
 from __future__ import annotations
@@ -878,6 +900,299 @@ def make_analysis():
                             "ANALYSIS_SCRIPTS"})
 
 
+NET_SIZE, NET_BATCH, NET_INPUT_SEED = 5, 3, 11
+HUMANSL_BIN = OUT / C.HUMANSL_MODEL
+
+
+def _jax_cfg(kind: str, fields: dict | None = None):
+    return C.net_config(JC, kind, fields)
+
+
+def make_model_shapes():
+    """Every preset's Flax parameter shapes from jax.eval_shape (nothing
+    compiled), as JSON."""
+    shapes = {}
+    for name, cfg in JC.CONFIGS.items():
+        m = JModel(cfg, pos_len=NET_SIZE, dtype=jnp.float32)
+        tree = jax.eval_shape(m.init, jax.random.PRNGKey(0),
+                              jnp.zeros((1, NET_SIZE, NET_SIZE, 22)),
+                              jnp.zeros((1, 19)))["params"]
+        shapes[name] = {"/".join(k.key for k in path): list(v.shape)
+                        for path, v in
+                        jax.tree_util.tree_flatten_with_path(tree)[0]}
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "model_shapes.json").write_text(json.dumps({
+        "meta": {"made_by": "jax.eval_shape(KataGoModel(cfg, pos_len="
+                            f"{NET_SIZE}).init) of every config.CONFIGS"},
+        "shapes": shapes}, sort_keys=True))
+    print(f"wrote model_shapes.json ({len(shapes)} presets)", flush=True)
+
+
+def make_nets():
+    """A float32 forward of each NET_KINDS config with seeded weights."""
+    sp, gl, mask, meta = C.net_inputs(NET_SIZE, NET_BATCH, NET_INPUT_SEED)
+    arrays = {}
+    for i, kind in enumerate(C.NET_KINDS):
+        cfg = _jax_cfg(kind)
+        params = C.net_params(cfg, NET_SIZE, seed=100 + i)
+        m = JModel(cfg, pos_len=NET_SIZE, dtype=jnp.float32)
+        out = jax.jit(m.apply)({"params": params}, sp, gl, mask, meta)
+        arrays.update(flat(params, f"w_{kind}"))
+        arrays.update({f"out_{kind}/{k}": np.asarray(v)
+                       for k, v in out.items()})
+    save("nets", arrays, {
+        "size": NET_SIZE, "batch": NET_BATCH, "kinds": list(C.NET_KINDS),
+        "configs": "tests.test_torch_common.NET_KINDS",
+        "weights": "net_params(cfg, size, seed=100 + index of the kind)",
+        "inputs": f"net_inputs(size, batch, {NET_INPUT_SEED}): spatial, "
+                  "global, mask, metadata",
+        "dtype": "float32"})
+
+
+def make_nets_train():
+    """compute_losses of the NET_TRAIN net (intermediate head, nbttf-GAB,
+    QK-norm GQA) on the train_losses batch, its gradients, and one step
+    of sgd and of normuon (Newton-Schulz in float32) from them."""
+    import optax
+    cfg = _jax_cfg("net_train", C.NET_TRAIN)
+    params = {"params": C.net_params(cfg, TRAIN_SIZE, seed=200)}
+    model = JModel(cfg, pos_len=TRAIN_SIZE, dtype=jnp.float32)
+    batch = {k: jnp.asarray(v) for k, v in train_batch().items()}
+    seki_in = JLOSS.SekiEma(sum=jnp.float32(SEKI_IN[0]),
+                            weight=jnp.float32(SEKI_IN[1]))
+
+    def loss(p):
+        raw = model.apply(p, batch["binaryInputNCHW"].transpose(0, 2, 3, 1),
+                          batch["globalInputNC"])
+        return JLOSS.compute_losses(raw, batch, seki_ema=seki_in,
+                                    is_training=True)
+
+    _, metrics, ema = jax.jit(loss)(params)
+    arrays = {f"m/{k}": np.asarray(v) for k, v in metrics.items()}
+    arrays["seki"] = np.asarray([ema.sum, ema.weight])
+    grads = jax.jit(jax.grad(lambda p: loss(p)[0]))(params)
+    arrays.update(flat(params["params"], "w"))
+    arrays.update(flat(grads["params"], "grad"))
+    for kind, tag, ctx in (("sgd", "sgd", None),
+                           ("normuon", "normuon_f32", ns_float32)):
+        opt = JSTEP.make_optimizer(lr=OPT_LR, kind=kind)
+        st = opt.init(params)
+        if ctx is None:
+            upd, _ = jax.jit(opt.update)(grads, st, params)
+        else:
+            with ctx():
+                upd, _ = jax.jit(opt.update)(grads, st, params)
+        arrays.update(flat(optax.apply_updates(params, upd)["params"],
+                           f"{tag}/p0"))
+    save("nets_train", arrays, {
+        "config": "tests.test_torch_common.NET_TRAIN",
+        "weights": "net_params(cfg, size, seed=200)", "size": TRAIN_SIZE,
+        "batch": TRAIN_BATCH,
+        "rows": f"random_rows(size, batch, {LOSS_ROWS_SEED}) through "
+                "decode_rows", "seki_in": SEKI_IN, "lr": OPT_LR,
+        "steps": "one step of sgd and of normuon (ns_float32) from the "
+                 "weights with these gradients"})
+
+
+DESC_TF_CASES = {"fixed_rope": "attn_ffn", "metadata": "metadata"}
+
+
+def make_desc_tf():
+    """apply_desc_model on v17 files: the JAX exporter's files of the
+    nets fixture's attn_ffn (fixed RoPE) and metadata weights, and the
+    tool-written tiny transformer (learnable RoPE, GQA, trunk-tip
+    RMSNorm, spatial and per position)."""
+    from katago_tpu.models import desc as JD
+    from katago_tpu.models import export as JEXP
+    nets, _ = C.load_ref("nets")
+    sp, gl, mask, meta = C.net_inputs(NET_SIZE, NET_BATCH, NET_INPUT_SEED)
+    arrays = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {}
+        for case, kind in DESC_TF_CASES.items():
+            path = f"{tmp}/{case}.bin"
+            JEXP.export_model(C.flax_tree(nets, f"w_{kind}"),
+                              _jax_cfg(kind), path)
+            files[case] = path
+        for spatial in (True, False):
+            case = f"learnable_rope_rms{'_spatial' if spatial else ''}"
+            files[case] = f"{tmp}/{case}.txt.gz"
+            C.write_tiny_transformer_model(files[case], seed=7,
+                                           spatial_rms=spatial)
+        for case, path in files.items():
+            desc = JD.load_model(path)
+            out = JD.apply_desc_model(desc, sp, gl, mask=mask,
+                                      metadata=meta)
+            for k, v in out.items():
+                arrays[f"{case}/{k}"] = np.asarray(v)
+            arrays[f"{case}/sha256"] = np.array(desc.sha256)
+    save("desc_tf", arrays, {
+        "cases": sorted(files), "exported": DESC_TF_CASES,
+        "written": "write_tiny_transformer_model(path, seed=7, "
+                   "spatial_rms=...)",
+        "inputs": f"net_inputs({NET_SIZE}, {NET_BATCH}, {NET_INPUT_SEED})"})
+
+
+FEATURE_VERSIONS = (3, 4, 5, 6)
+
+
+def make_features_versions():
+    """fill_features at versions 3..6 (chase ladders, no cached masks) on
+    the features fixture's games."""
+    size = 9
+    t_gs = None
+    for rules, g, n, seed, pp in FEATURE_GAMES:
+        t = C.random_games_torch(size, g, n, rules, seed, pass_prob=pp)
+        t_gs = t if t_gs is None else C.tree_cat(t_gs, t)
+    j_gs = C.jax_games_like(t_gs, size)
+    params = JF.FeatureParams(jnp.float32(0.5), jnp.float32(0.25),
+                              jnp.bool_(False))
+    arrays = {}
+    for v in FEATURE_VERSIONS:
+        sp, gl = jax.jit(jax.vmap(lambda gs_: JF.fill_features(
+            gs_, size, params, JH.legal_moves(gs_, size), version=v,
+            ladder_mode="chase")))(j_gs)
+        arrays[f"v{v}/spatial"] = np.asarray(sp)
+        arrays[f"v{v}/global"] = np.asarray(gl)
+    save("features_versions", arrays, {
+        "size": size, "games": FEATURE_GAMES, "versions": FEATURE_VERSIONS,
+        "games_by": "tests.test_torch_common.random_games_torch, "
+                    "concatenated in order",
+        "feature_params": [0.5, 0.25, False],
+        "call": "jax.vmap(fill_features(gs, size, params, legal, "
+                "version=v, ladder_mode='chase')): no cached masks"})
+
+
+def make_pattern_search():
+    """A 5x5 SearchDriver search of one game with and without an
+    avoid-repeated-shapes table of its moves and of moves made before
+    from its root position (tests.test_torch_common.pattern_history)."""
+    from katago_tpu.search import patternbonus as JPB
+    size, visits = SEARCH_SIZE, SEARCH_VISITS
+    params = jax_params()
+    jm = jax_model(size)
+    roots, _ = _jax_roots(size, [C.PATTERN_MOVES])
+    boards, plas = [], []
+    gs = C.jax_batch(JH.new_game(size, JH.RulesArr.from_rules(
+        JR.Rules.tromp_taylorish()), 64), 1)
+    step = jax.jit(jax.vmap(lambda s, m: JH.step(s, m, size)[0]))
+    for mv in C.PATTERN_MOVES:
+        boards.append(np.asarray(gs.pos.board.stones[0]))
+        plas.append(int(gs.pos.to_move[0]))
+        gs = step(gs, jnp.asarray([mv], jnp.int32))
+    pla_for = int(gs.pos.to_move[0])
+    hist = C.pattern_history(boards, plas, np.asarray(gs.pos.board.stones[0]),
+                             pla_for)
+    table = JPB.build_avoid_repeat_table(*hist, size, pla_for,
+                                         C.PATTERN_UTILITY)
+    drv = JDriver(jm.apply, params, _search_params(), size=size,
+                  max_nodes=visits + 3, chunk_size=visits // 2,
+                  with_ladders=True)
+    arrays = {"keys": np.asarray(table.keys), "bonus": np.asarray(table.bonus)}
+    for tag, pb in (("on", table), ("off", None)):
+        res = drv.search(roots, jax.random.PRNGKey(0), max_visits=visits + 1,
+                         pattern_bonus=pb)
+        arrays.update(_result_arrays(res, f"{tag}/"))
+        arrays[f"{tag}/pattern_stats"] = np.asarray(
+            res.ss.tree.stats[..., 17])
+    save("pattern_search", arrays, {
+        "size": size, "visits": visits, "max_nodes": visits + 3,
+        "chunk_size": visits // 2, "moves": C.PATTERN_MOVES,
+        "pla_for": pla_for, "utility": C.PATTERN_UTILITY,
+        "weights": f"weights_b1c6_s{WEIGHT_SEED}",
+        "params": "for_selfplay, root noise off", "with_ladders": True,
+        "table": "build_avoid_repeat_table(*pattern_history(boards "
+                 "before each move, players, root board, pla_for), size, "
+                 "pla_for, utility)"})
+
+
+def _write_humansl_net():
+    """b1c6 with the metadata encoder, seeded, through the JAX exporter,
+    gzipped with mtime 0 (a stable file)."""
+    import gzip
+    from katago_tpu.models import export as JEXP
+    cfg = dataclasses.replace(JC.get_config("b1c6"), metadata_encoder=True,
+                              metadata_encoder_channels=8)
+    params = C.net_params(cfg, C.HUMANSL_SIZE, seed=300)
+    with tempfile.TemporaryDirectory() as tmp:
+        JEXP.export_model(params, cfg, f"{tmp}/h.bin", name="humansl-b1c6")
+        data = Path(f"{tmp}/h.bin").read_bytes()
+    with gzip.GzipFile(HUMANSL_BIN, "wb", mtime=0) as f:
+        f.write(data)
+
+
+def make_humansl():
+    import contextlib
+    import io
+    from katago_tpu.cli import analysis as JAN
+    from katago_tpu.cli import humanslnet_server as JSRV
+    _write_humansl_net()
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Path(tmp) / "gtp.cfg"
+        cfg.write_text(C.HUMANSL_GTP_CONFIG)
+        outs["gtp"] = _gtp_transcript(
+            C.HUMANSL_GTP_SCRIPT, ["-model", str(HUMANSL_BIN), "-config",
+                                   str(cfg), "-boardsize", "9"])
+    from katago_tpu.models import desc as JD
+    eng = JAN.AnalysisEngine(str(HUMANSL_BIN))
+    # the JAX engine's apply (make_desc_apply) takes no metadata, so its
+    # humanSLProfile searches fail; give it apply_desc_model, as its GTP
+    # engine has, to record what it answers with the profile applied
+    eng.model_apply = lambda p, s, g, metadata=None: JD.apply_desc_model(
+        eng.desc, s, g, metadata=metadata)
+    out = io.StringIO()
+    JAN.run_protocol(eng, io.StringIO(C.HUMANSL_ANALYSIS_SCRIPT), out)
+    outs["analysis"] = out.getvalue()
+    out = io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(C.HUMANSL_SERVER_SCRIPT)
+    try:
+        with contextlib.redirect_stdout(out):
+            JSRV.main(["-model", str(HUMANSL_BIN)])
+    finally:
+        sys.stdin = saved
+    outs["server"] = out.getvalue()
+    save("humansl", {k: np.array(v) for k, v in outs.items()}, {
+        "model": HUMANSL_BIN.name,
+        "model_by": "b1c6 + metadata_encoder (8 channels), "
+                    "net_params(cfg, 9, seed=300), the JAX exporter",
+        "gtp": "HUMANSL_GTP_SCRIPT through gtp.main with HUMANSL_GTP_CONFIG",
+        "analysis": "HUMANSL_ANALYSIS_SCRIPT, the engine's model_apply "
+                    "replaced by apply_desc_model (its own takes no "
+                    "metadata)", "server":
+        "HUMANSL_SERVER_SCRIPT through humanslnet_server.main -model"})
+
+
+def make_vnets():
+    """GTP and analysis sessions on the tiny nets of model versions 3, 5,
+    6 and 7 (input features V3-V6)."""
+    import io
+    from katago_tpu.cli import analysis as JAN
+    from katago_tpu.cli import gtp as JGTP
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for v in C.VNET_VERSIONS:
+            path = f"{tmp}/v{v}.txt.gz"
+            C.write_tiny_model(path, v, seed=v)
+            eng = JGTP.GTPEngine(model_path=path, size=C.VNET_SIZE,
+                                 visits=C.GTP_VISITS)
+            out = io.StringIO()
+            JGTP.run_gtp(eng, io.StringIO(C.VNET_GTP_SCRIPT), out)
+            outs[f"gtp_v{v}"] = out.getvalue()
+            aeng = JAN.AnalysisEngine(path)
+            out = io.StringIO()
+            JAN.run_protocol(aeng, io.StringIO(C.VNET_ANALYSIS_SCRIPT), out)
+            outs[f"analysis_v{v}"] = out.getvalue()
+    save("vnets", {k: np.array(v) for k, v in outs.items()}, {
+        "versions": list(C.VNET_VERSIONS), "size": C.VNET_SIZE,
+        "visits": C.GTP_VISITS,
+        "models": "write_tiny_model(path, version, seed=version)",
+        "gtp": "VNET_GTP_SCRIPT through GTPEngine(size, visits)",
+        "analysis": "VNET_ANALYSIS_SCRIPT (through the chunked driver: "
+                    "reportDuringSearchEvery)"})
+
+
 MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "chase": make_chase, "ladder_exact": make_ladder_exact,
           "selfplay": make_selfplay, "resign": make_resign,
@@ -887,7 +1202,12 @@ MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "train": make_train, "train_muon": make_train_muon,
           "train_resume": make_train_resume, "desc": make_desc,
           "search_extras": make_search_extras, "gtp": make_gtp,
-          "analysis": make_analysis}
+          "analysis": make_analysis, "model_shapes": make_model_shapes,
+          "nets": make_nets, "nets_train": make_nets_train,
+          "desc_tf": make_desc_tf,
+          "features_versions": make_features_versions,
+          "pattern_search": make_pattern_search, "humansl": make_humansl,
+          "vnets": make_vnets}
 
 
 def main() -> int:
