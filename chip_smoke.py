@@ -83,10 +83,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ladders on (both kernels launched); b7c96h3tfrs exported as a v17
      .bin.gz, loaded by DescNet, kata-raw-nn equal on the card and the
      CPU within RAW_NN_ATOL;
- 14. report: the card's name and power limit, each kernel's time beside
+ 14. the match and the gatekeeper (`run_match_phase`): play_match at
+     19x19 in float32 with ladders on, phase 7's trained b18c384nbt
+     against the seeded net it started from, MATCH_GAMES games of
+     MATCH_MOVES moves at MATCH_VISITS visits (each move both bots
+     search every game): the record adds up, Elo finite, both kernels
+     launched; then run_gatekeeper at 5x5 with a seeded champion in
+     models/ and phase 7's export as the candidate (2 games at 4
+     visits): it plays a match and moves the candidate;
+ 15. one cycle of the training loop (`run_loop_phase`): run_loop (sync)
+     at 7x7 with b18c384nbt, a seeded champion in models/, so selfplay,
+     shuffle, training and the gatekeeper's match all run; the shards,
+     the checkpoint and the moved candidate checked, seconds and
+     launches per stage;
+ 16. the tools (`run_tools_phase`) through their mains: benchmark_cmd's
+     games-per-batch sweep and -train, genconfig_cmd -benchmark on
+     phase 7's .bin.gz with its config loaded by gtp -config for a
+     genmove, forward_cmd on phase 6's first game on the card and the
+     CPU (every number within RAW_NN_ATOL), evalsgf, play_cmd with
+     scripted input, checkpoint_tools show and clean -bin-gz (the
+     cleaned .bin.gz through check_desc_net);
+ 17. report: the card's name and power limit, each kernel's time beside
      its plain version's and its bound, launches per search, per
      selfplay move, per GTP session, per analysis session, per humanSL
-     genmove, per transformer selfplay move and per b28c512nbt search,
+     genmove, per transformer selfplay move, per b28c512nbt search, per
+     match move, per gatekeeper, per loop cycle and in the tools,
      playouts/s, a `kernels` JSON line, and the result line last.
 
 A kernel's time ("device-only") is that of N launches captured in one
@@ -167,6 +188,27 @@ TF_CHECK_FIELDS = dict(
 B28_MODEL = "b28c512nbt"     # phase 13: the kata1 main-run shape
 B28_VISITS = 32              # phase 13's search (a few dozen visits)
 V17_MODEL = "b7c96h3tfrs"    # phase 13: exported as v17, served by DescNet
+MATCH_GAMES = 16             # phase 14: the match (trained vs seeded)
+MATCH_VISITS = 16
+MATCH_MOVES = 12             # max_moves: the games are cut (time limit)
+GATE_SIZE = 5                # phase 14's gatekeeper: one candidate
+GATE_GAMES = 2
+GATE_VISITS = 4
+GATE_MOVES = 12              # max_moves of its match (time limit)
+LOOP_SIZE = 7                # phase 15: one cycle (the JAX loop's -size)
+LOOP_GAMES = 8
+LOOP_VISITS = 4
+LOOP_TRAIN_STEPS = 2
+LOOP_BATCH = 64
+LOOP_GATE_GAMES = 2
+LOOP_MOVES = 12              # max_moves of its games (time limit)
+BENCH_BATCHES = "1,32,128"   # phase 16: benchmark_cmd's sweep
+BENCH_VISITS = 16
+BENCH_TRAIN_BATCH = 256      # benchmark_cmd -train (float32)
+BENCH_TRAIN_STEPS = 3
+TOOLS_TURN = 10              # forward_cmd / evalsgf position in phase 6's game
+EVALSGF_VISITS = 32
+PLAY_VISITS = 16
 REF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_ref"
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -1511,6 +1553,367 @@ def run_families_phase(dev, work: Path) -> dict:
     return out
 
 
+def _stdout_of(fn, *args) -> str:
+    """What fn(*args) prints to standard output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return buf.getvalue()
+
+
+def _scripted_input(lines):
+    """An input() that answers with `lines` in turn (echoing prompt and
+    answer), then raises EOFError."""
+    it = iter(lines)
+
+    def fake(prompt=""):
+        line = next(it, None)
+        if line is None:
+            print(prompt)
+            raise EOFError
+        print(prompt + line)
+        return line
+    return fake
+
+
+def run_match_phase(train: dict, dev, work: Path) -> dict:
+    """Phase 14: play_match at SIZE, float32, ladders on: phase 7's
+    trained net (bot A) against the seeded net it started from,
+    MATCH_GAMES games of at most MATCH_MOVES moves at MATCH_VISITS
+    visits (each move both bots search every game; the searches are
+    counted). The record adds up, its Elo is finite, "finished" holds
+    exactly when the games ended before MATCH_MOVES, and both kernels
+    were launched. Then run_gatekeeper at GATE_SIZE with an export of
+    the seeded net as the champion in models/ and phase 7's export as
+    the one candidate, GATE_GAMES games at GATE_VISITS visits cut at
+    GATE_MOVES moves: it plays a match and moves the candidate into
+    models/ or rejected-models/."""
+    import os
+    import shutil
+
+    from katago_torch.cli import gatekeeper_cmd as GK
+    from katago_torch.cli import train_cmd as TCMD
+    from katago_torch.cli.match_cmd import play_match
+    from katago_torch.search import mcts
+    from katago_torch.train import checkpoint as CK
+
+    seeded = TCMD.make_model(SIZE, MODEL, dev, SEED).eval()
+    trained = GK._bot_from_export(train["export"], SIZE, MODEL, dev)
+    lines = []
+    searches = []
+    run_search = mcts.run_search
+
+    def counted(*a, **kw):
+        searches.append(1)
+        return run_search(*a, **kw)
+    mcts.run_search = counted          # play_match's searches, this run
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        result = play_match(trained, seeded, size=SIZE,
+                            num_games=MATCH_GAMES, visits=MATCH_VISITS,
+                            max_moves=MATCH_MOVES, seed=SEED, device=dev,
+                            log=lines.append)
+    finally:
+        mcts.run_search = run_search
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = _kernel_counts()
+    _need_launches(launches, "phase 14's match")
+    moves = len(searches) // 2         # each move searches with both bots
+    if result["games"] != MATCH_GAMES or result["a_wins"] + \
+            result["a_losses"] + result["draws"] != MATCH_GAMES or \
+            not math.isfinite(result["a_elo_diff"]) or moves < 1 or \
+            (moves < MATCH_MOVES) != result["finished"]:
+        raise AssertionError(f"match record {result} after {moves} moves")
+    del seeded, trained
+    playouts = 2 * MATCH_GAMES * MATCH_VISITS * moves
+    out = {"seconds": dt, "moves": moves,
+           "s_per_move": dt / moves, "playouts": playouts,
+           "playouts_per_s": playouts / dt, "launches": launches,
+           "launches_per_move": {k: v / moves
+                                 for k, v in launches.items()},
+           "result": result}
+    log(f"phase match: {MODEL} float32 trained vs seeded, {MATCH_GAMES} "
+        f"games x {moves} moves at {MATCH_VISITS} visits (both bots "
+        f"search every game) in {dt:.2f} s: {out['s_per_move']:.3f} s per "
+        f"move, {out['playouts_per_s']:.1f} playouts/s; launches per move "
+        f"{json.dumps(out['launches_per_move'])}; {lines[-1]}")
+    log("match json " + json.dumps(result))
+
+    gate = work / "gate"
+    dirs = {n: str(gate / n) for n in ("test-models", "models",
+                                       "rejected-models")}
+    CK.export_params(dirs["models"], "champion",
+                     TCMD.make_model(GATE_SIZE, MODEL, dev, SEED)
+                     .state_dict())
+    shutil.copytree(train["export"], os.path.join(dirs["test-models"],
+                                                  "candidate"))
+    _reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gk = GK.run_gatekeeper(dirs["test-models"], dirs["models"],
+                           dirs["rejected-models"], size=GATE_SIZE,
+                           config_name=MODEL, games=GATE_GAMES,
+                           visits=GATE_VISITS, seed=SEED,
+                           max_moves=GATE_MOVES, device=dev,
+                           log=lines.append)
+    torch.cuda.synchronize()
+    gate_s = time.time() - t0
+    gate_launches = _kernel_counts()
+    if len(gk) != 1 or "win_prop" not in gk[0] or \
+            gk[0]["games"] != GATE_GAMES:
+        raise AssertionError(f"gatekeeper played no match: {gk}")
+    dest = dirs["models" if gk[0]["accepted"] else "rejected-models"]
+    if os.listdir(dirs["test-models"]) or \
+            "candidate" not in os.listdir(dest):
+        raise AssertionError("gatekeeper did not move the candidate")
+    _need_launches(gate_launches, "phase 14's gatekeeper")
+    out.update(gate_s=gate_s, gate=gk[0], gate_launches=gate_launches)
+    log(f"phase gatekeeper: {GATE_SIZE}x{GATE_SIZE} {MODEL}, "
+        f"{GATE_GAMES} games at {GATE_VISITS} visits, at most {GATE_MOVES} "
+        f"moves, in {gate_s:.2f} s: "
+        f"win prop {gk[0]['win_prop']:.2f} -> "
+        f"{'accepted' if gk[0]['accepted'] else 'rejected'}; launches "
+        f"{gate_launches}")
+    return out
+
+
+def run_loop_phase(dev, work: Path) -> dict:
+    """Phase 15: one cycle of run_loop (sync) at LOOP_SIZE with MODEL as
+    its config: models/ holds an export of the seeded initial net, so
+    the cycle runs every stage: selfplay from that champion
+    (LOOP_GAMES games at LOOP_VISITS visits, every move recorded),
+    shuffle, LOOP_TRAIN_STEPS train steps at batch LOOP_BATCH, and a
+    gatekeeper match of LOOP_GATE_GAMES games; the games and the match
+    are cut at LOOP_MOVES moves (the loop's max_moves; the time limit).
+    Checks the shards, the checkpoint and the candidate in models/ or
+    rejected-models/; reports each stage's seconds and kernel launches
+    (the stages are wrapped in timers for this run only)."""
+    import functools
+    import os
+
+    from katago_torch.cli import loop_cmd as L
+    from katago_torch.cli import train_cmd as TCMD
+    from katago_torch.train import checkpoint as CK
+
+    base = work / "loop"
+    CK.export_params(str(base / "models"), "champion",
+                     TCMD.make_model(LOOP_SIZE, MODEL, dev, SEED)
+                     .state_dict())
+    stages = {"selfplay": "run_selfplay", "shuffle": "shuffle_npz_files",
+              "train": "run_training", "gatekeeper": "run_gatekeeper"}
+    seconds, launches = {}, {}
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*a, **kw):
+            before = _kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                seconds[name] = time.time() - t0
+                launches[name] = {k: v - before[k]
+                                  for k, v in _kernel_counts().items()}
+        return run
+
+    orig = {attr: getattr(L, attr) for attr in stages.values()}
+    for name, attr in stages.items():
+        setattr(L, attr, timed(name, orig[attr]))
+    lines = []
+    _reset_kernel_counts()
+    t0 = time.time()
+    try:
+        summary = L.run_loop(
+            str(base), cycles=1, size=LOOP_SIZE, config_name=MODEL,
+            games_per_cycle=LOOP_GAMES, visits=LOOP_VISITS,
+            train_steps=LOOP_TRAIN_STEPS, batch_size=LOOP_BATCH,
+            lr=TRAIN_LR, gate_games=LOOP_GATE_GAMES, seed=SEED,
+            max_moves=LOOP_MOVES, device=dev, log=lines.append)
+    finally:
+        for attr, fn in orig.items():
+            setattr(L, attr, fn)
+    dt = time.time() - t0
+    total = _kernel_counts()
+    _need_launches(total, "phase 15's cycle")
+    (cycle,) = summary
+    shards = list((base / "selfplay" / "champion" / "tdata").glob("*.npz"))
+    shuffled = list((base / "shuffleddata" / "c0000").glob("*.npz"))
+    sp = cycle["selfplay"]
+    if not shards or not shuffled or sp["games"] != LOOP_GAMES or \
+            sp["rows"] <= 0:
+        raise AssertionError(f"loop selfplay/shuffle wrote {shards}, "
+                             f"{shuffled}; {sp}")
+    ckpt = CK.latest_checkpoint(str(base / "ckpts"))
+    if ckpt is None or CK.load_metadata(ckpt)["global_step"] != \
+            LOOP_TRAIN_STEPS or cycle["train"]["steps"] != LOOP_TRAIN_STEPS:
+        raise AssertionError(f"loop training left checkpoint {ckpt}")
+    (gk,) = cycle["gatekeeper"]
+    cand = f"{MODEL}-s{LOOP_TRAIN_STEPS}"
+    dest = base / ("models" if gk["accepted"] else "rejected-models")
+    if gk["candidate"] != cand or "win_prop" not in gk or \
+            not (dest / cand).is_dir() or os.listdir(base / "test-models"):
+        raise AssertionError(f"loop gatekeeper: {gk}, "
+                             f"{sorted(dest.iterdir())}")
+    out = {"seconds": dt, "stage_s": seconds, "stage_launches": launches,
+           "launches": total, "selfplay": sp, "gate": gk,
+           "first_loss": cycle["train"].get("first_loss"),
+           "final_loss": cycle["train"].get("final_loss")}
+    log(f"phase loop: one sync cycle at {LOOP_SIZE}x{LOOP_SIZE}, {MODEL}, "
+        f"{LOOP_GAMES} games of at most {LOOP_MOVES} moves at "
+        f"{LOOP_VISITS} visits ({sp['rows']} rows, "
+        f"{len(shuffled)} shuffled shards), {LOOP_TRAIN_STEPS} steps at "
+        f"batch {LOOP_BATCH}, gate {LOOP_GATE_GAMES} games -> "
+        f"{'accepted' if gk['accepted'] else 'rejected'} (win prop "
+        f"{gk['win_prop']:.2f}) in {dt:.2f} s; seconds per stage "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}; "
+        f"launches per stage {json.dumps(launches)}")
+    return out
+
+
+def run_tools_phase(train: dict, dev, work: Path) -> dict:
+    """Phase 16: the tools through their mains on the card. benchmark_cmd
+    over BENCH_BATCHES games at BENCH_VISITS visits (one timed search
+    each) and -train at batch BENCH_TRAIN_BATCH; genconfig_cmd
+    -benchmark on phase 7's .bin.gz, its config loaded by gtp -config for
+    one genmove; forward_cmd on the .bin.gz at turn TOOLS_TURN of phase
+    6's first game, on the card and on the CPU, every number within
+    RAW_NN_ATOL; evalsgf there at EVALSGF_VISITS; play_cmd with input()
+    scripted for three turns; checkpoint_tools show and clean -bin-gz of
+    phase 7's checkpoint, the cleaned .bin.gz held against its export by
+    check_desc_net."""
+    import io
+    import re
+
+    import numpy as np
+
+    from katago_torch.cli import benchmark_cmd as BEN
+    from katago_torch.cli import checkpoint_tools_cmd as CT
+    from katago_torch.cli import forward_cmd as FWD
+    from katago_torch.cli import genconfig_cmd as GEN
+    from katago_torch.cli import gtp as G
+    from katago_torch.cli import play_cmd as PLAY
+    from katago_torch.cli import sgf_cmds as SGF
+    from katago_torch.train import checkpoint as CK
+
+    bin_gz = train["bin_gz"]
+    sgfs = str(next(work.glob("tdata_*.sgfs")))
+    on = ["-device", str(dev)]
+    seconds = {}
+    _reset_kernel_counts()
+
+    def clock(name, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+        return res
+
+    bench = clock("benchmark", _stdout_of, BEN.main, [
+        "-config", MODEL, "-size", str(SIZE), "-visits", str(BENCH_VISITS),
+        "-batches", BENCH_BATCHES, "-iters", "1"] + on)
+    bench = json.loads(bench.splitlines()[-1])
+    rows = bench["results"]
+    if [r["games_per_batch"] for r in rows] != \
+            [int(b) for b in BENCH_BATCHES.split(",")] or \
+            bench["device"] != BEN.device_name(dev) or \
+            not all(r["playouts_per_s"] > 0 for r in rows):
+        raise AssertionError(f"benchmark output {bench}")
+    tbench = clock("benchmark_train", _stdout_of, BEN.main, [
+        "-train", "-config", MODEL, "-size", str(SIZE), "-batches",
+        str(BENCH_TRAIN_BATCH), "-steps", str(BENCH_TRAIN_STEPS)] + on)
+    tbench = json.loads(tbench.splitlines()[-1])
+    if not tbench["train_results"][0]["rows_per_s"] > 0:
+        raise AssertionError(f"train benchmark output {tbench}")
+    log("benchmark json " + json.dumps(bench))
+    log("benchmark train json " + json.dumps(tbench))
+
+    cfg = work / "genconfig.cfg"
+    clock("genconfig", _stdout_of, GEN.main, [
+        "-output", str(cfg), "-benchmark", "-model", bin_gz, "-boardsize",
+        str(SIZE)] + on)
+    max_visits = int(re.search(r"maxVisits = (\d+)",
+                               cfg.read_text()).group(1))
+    out = io.StringIO()
+    clock("gtp_genmove", G.main, ["-model", bin_gz, "-config", str(cfg),
+                                  "-boardsize", str(SIZE), "-seed", "0"]
+          + on,
+          io.StringIO("genmove b\nquit\n"), out)
+    if not re.match(r"= ([A-HJ-T]\d+|pass)\n", out.getvalue()):
+        raise AssertionError(f"genmove on the generated config: "
+                             f"{out.getvalue()!r}")
+
+    fwd_args = ["-model", bin_gz, "-sgf", sgfs, "-turn", str(TOOLS_TURN),
+                "-full"]
+    card = json.loads(clock("forward", _stdout_of, FWD.main,
+                            fwd_args + on))
+    cpu = json.loads(clock("forward_cpu", _stdout_of, FWD.main,
+                           fwd_args + ["-device", "cpu"]))
+    fwd_err = 0.0
+    for k, v in cpu.items():
+        a, b = card[k], v
+        if k == "topPolicy":
+            a, b = [p["prob"] for p in a], [p["prob"] for p in b]
+        if isinstance(b, (float, list)):
+            fwd_err = max(fwd_err, float(np.max(np.abs(
+                np.asarray(a, np.float64) - np.asarray(b, np.float64)))))
+        elif a != b:
+            raise AssertionError(f"forward {k}: card {a} != cpu {b}")
+    if not fwd_err <= RAW_NN_ATOL:
+        raise AssertionError(f"forward card vs CPU differs by {fwd_err}")
+
+    text = clock("evalsgf", _stdout_of, SGF.main, [
+        "evalsgf", sgfs, "-model", bin_gz, "-visits", str(EVALSGF_VISITS),
+        "-move-num", str(TOOLS_TURN)] + on)
+    if f"visits: {EVALSGF_VISITS + 1}" not in text:
+        raise AssertionError(f"evalsgf output {text!r}")
+
+    PLAY.input = _scripted_input([_stars()[0], "genmove", "policy"])
+    try:
+        play = clock("play", _stdout_of, PLAY.main, [
+            "-model", bin_gz, "-size", str(SIZE), "-visits",
+            str(PLAY_VISITS)] + on)
+    finally:
+        del PLAY.input
+    if play.count("engine plays") != 2 or "for you" not in play or \
+            not re.search(r"[A-HJ-T]\d+:0\.\d{3}", play):
+        raise AssertionError(f"play transcript {play!r}")
+    launches = _kernel_counts()
+    _need_launches(launches, "phase 16's tools")
+
+    ckpt = CK.latest_checkpoint(str(work / "ckpt"))
+    shown = json.loads(_stdout_of(CT.main, ["show", "-ckpt", ckpt]))
+    if shown["step"] != TRAIN_WARMUP + TRAIN_STEPS:
+        raise AssertionError(f"checkpoint show {shown}")
+    cleaned = json.loads(clock("clean", _stdout_of, CT.main, [
+        "clean", "-ckpt", ckpt, "-out", str(work / "clean"), "-name",
+        "cleaned", "-config", MODEL, "-size", str(SIZE), "-bin-gz"]))
+    desc = check_desc_net(cleaned["bin_gz"], cleaned["export"],
+                          next((work / "tdata").glob("*.npz")), dev)
+    res = {"seconds": seconds, "benchmark": bench, "train_benchmark": tbench,
+           "genconfig_max_visits": max_visits, "forward_max_abs_err": fwd_err,
+           "checkpoint_show": shown, "clean": cleaned,
+           "clean_desc_rel_err": desc["rel_err"], "launches": launches}
+    log(f"phase tools: benchmark playouts/s "
+        f"{[round(r['playouts_per_s'], 1) for r in rows]} at batches "
+        f"{BENCH_BATCHES} ({BENCH_VISITS} visits), recommended "
+        f"{bench['recommended']}; train {tbench['train_results']}; "
+        f"genconfig maxVisits {max_visits}; forward card vs CPU within "
+        f"{fwd_err:.2e} (limit {RAW_NN_ATOL}); evalsgf, play, show and "
+        f"clean ok; seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}; "
+        f"launches {launches}")
+    log("evalsgf text " + json.dumps(text))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None)
@@ -1745,15 +2148,24 @@ def main() -> int:
         tfo = run_transformer_phase(dev, work)
         torch.cuda.empty_cache()
         fam = run_families_phase(dev, work)
+        torch.cuda.empty_cache()
 
-    # ---- 14. report ----
+        # ---- 14-16. the match and gatekeeper, the loop, the tools ----
+        match = run_match_phase(train, dev, work)
+        torch.cuda.empty_cache()
+        loop = run_loop_phase(dev, work)
+        torch.cuda.empty_cache()
+        tools = run_tools_phase(train, dev, work)
+
+    # ---- 17. report ----
     log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} (search 1), "
         f"{sp_out['playouts_per_s']:.1f} (selfplay, {SP_VISITS} visits, "
         f"tree reuse), {1e3 / gtp_out['playout_ms']:.1f} (one GTP game), "
         f"{1e3 / hsl['playout_ms']:.1f} (one humanSL GTP game), "
         f"{tfo['selfplay']['playouts_per_s']:.1f} ({TF_MODEL} selfplay), "
         f"{fam['b28_playouts_per_s']:.1f} ({B28_MODEL} search, "
-        f"{B28_VISITS} visits)")
+        f"{B28_VISITS} visits), {match['playouts_per_s']:.1f} (match, "
+        f"{MATCH_GAMES} games, {MATCH_VISITS} visits, float32)")
     kernels = [
         {"name": "chase_lanes", "route": "cuda",
          "source": "katago_torch/ops/csrc/chase.cu",
@@ -1768,6 +2180,11 @@ def main() -> int:
              tfo["selfplay"]["launches"]["chase_lanes"]
              / tfo["selfplay"]["moves"],
          "launches_b28_search": fam["b28_launches"]["chase_lanes"],
+         "launches_match_per_move":
+             match["launches_per_move"]["chase_lanes"],
+         "launches_gatekeeper": match["gate_launches"]["chase_lanes"],
+         "launches_loop_cycle": loop["launches"]["chase_lanes"],
+         "launches_tools": tools["launches"]["chase_lanes"],
          "ms_one_game": one["k1_ms"], "plain_ms_one_game": one["k1_plain_ms"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
@@ -1785,6 +2202,11 @@ def main() -> int:
              tfo["selfplay"]["launches"]["connected_labels"]
              / tfo["selfplay"]["moves"],
          "launches_b28_search": fam["b28_launches"]["connected_labels"],
+         "launches_match_per_move":
+             match["launches_per_move"]["connected_labels"],
+         "launches_gatekeeper": match["gate_launches"]["connected_labels"],
+         "launches_loop_cycle": loop["launches"]["connected_labels"],
+         "launches_tools": tools["launches"]["connected_labels"],
          "ms_one_game": one["k2_ms"], "plain_ms_one_game": one["k2_plain_ms"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,

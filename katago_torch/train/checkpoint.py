@@ -115,7 +115,7 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
     return os.path.join(ckpt_dir, entries[-1]) if entries else None
 
 
-def _check_keys(what: str, template: dict, got: dict):
+def check_keys(what: str, template: dict, got: dict):
     if set(template) != set(got):
         raise ValueError(f"checkpoint {what} keys differ from the "
                          f"template's: missing "
@@ -123,15 +123,21 @@ def _check_keys(what: str, template: dict, got: dict):
                          f"{sorted(set(got) - set(template))[:5]}")
 
 
+def load_state_tree(path: str) -> dict:
+    """The raw dict a checkpoint's state.pt holds (CPU tensors and ints),
+    with no template: the keys the saving code wrote, and no others."""
+    return torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                      weights_only=True)
+
+
 def restore_checkpoint(path: str, template: TrainState) -> TrainState:
     """The TrainState saved at path, on the device of the template's
     params (whose keys it must have)."""
-    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                       weights_only=True)
-    _check_keys("params", template.params, saved["params"])
+    saved = load_state_tree(path)
+    check_keys("params", template.params, saved["params"])
     if isinstance(template.opt_state, dict):
-        _check_keys("optimizer state", template.opt_state,
-                    saved["opt_state"])
+        check_keys("optimizer state", template.opt_state,
+                   saved["opt_state"])
     dev = next(iter(template.params.values())).device
     s = _to_device(saved, dev)
     return TrainState(params=s["params"], opt_state=s["opt_state"],
@@ -190,5 +196,5 @@ def load_params(path: str, template: dict | None = None) -> dict:
                         weights_only=True)
     if template is None:
         return params
-    _check_keys("params", template, params)
+    check_keys("params", template, params)
     return _to_device(params, next(iter(template.values())).device)

@@ -920,3 +920,64 @@ def pattern_history(boards: list, plas: list, root_board, pla_for: int):
     k = len(PATTERN_REPEAT)
     return (boards + [root_board] * k, PATTERN_MOVES + PATTERN_REPEAT,
             plas + [pla_for] * k)
+
+
+# ---- slice 7: match, gatekeeper and the tools ---------------------------
+
+# both match engines sample their moves at temperature 0.2 / 0.6 from a
+# JAX key or a torch generator; the fixtures and the tests replace the
+# match module's SearchParams with temperature_zero(SearchParams), so each
+# game takes its most visited move and the records can be compared
+TEMPERATURE_ZERO = {"chosen_move_temperature": 0.0,
+                    "chosen_move_temperature_early": 0.0}
+
+
+def temperature_zero(search_params_cls):
+    def make(**kw):
+        return search_params_cls(**dict(kw, **TEMPERATURE_ZERO))
+    return make
+
+
+# b1c6 nets with the weights of these flax_params seeds (3 and 4 are the
+# weights_b1c6_s* fixtures; 5 is stored in match.npz)
+MATCH_SEEDS = (3, 4, 5)
+MATCH_ARGS = {"size": 5, "num_games": 2, "visits": 2, "seed": 0,
+              "max_moves": 8}
+# play_round_robin has no max_moves: the fixture and the test cut its
+# matches by binding max_moves into the module's play_match
+ROUND_ROBIN_ARGS = {"size": 5, "games_per_pair": 2, "visits": 2, "seed": 0}
+ROUND_ROBIN_MAX_MOVES = 4
+# run_gatekeeper calls (candidates, win_threshold): "cand-a" meets an
+# empty models dir, "cand-b" and "cand-c" each play the newest champion
+# (matches cut at GATE_MAX_MOVES); at temperature 0 both score 0.5, so
+# the third call's threshold rejects its candidate
+GATE_ARGS = {"size": 5, "config_name": "b1c6", "games": 2, "visits": 2}
+GATE_MAX_MOVES = 6
+GATE_CANDIDATES = {"cand-a": 3, "cand-b": 4, "cand-c": 5}
+GATE_CALLS = [(["cand-a"], 0.5), (["cand-b"], 0.5), (["cand-c"], 0.75)]
+
+# a 9x9 game with a setup stone for forward_cmd -sgf and evalsgf
+TOOLS_SGF = ("(;GM[1]FF[4]SZ[9]KM[6.5]AB[ii]"
+             ";B[ee];W[cc];B[gc];W[cg];B[gg];W[ce];B[ec];W[dd];B[eg]"
+             ";W[ge];B[dg];W[fc];B[cf];W[hd])")
+FORWARD_CASES = {"empty": ["-size", "9", "-full"],
+                 "sgf": ["-sgf", "{sgf}", "-turn", "10", "-full"]}
+EVALSGF_CASES = {"turn10": ["-move-num", "10"], "end": []}
+EVALSGF_VISITS = 16
+PLAY_ARGS = ["-size", "5", "-visits", "8"]
+PLAY_INPUTS = ["C3", "genmove", "policy"]
+
+
+def scripted_input(lines):
+    """An input() that answers with `lines` in turn, echoing prompt and
+    answer as a terminal shows them, then raises EOFError."""
+    it = iter(lines)
+
+    def fake(prompt=""):
+        line = next(it, None)
+        if line is None:
+            print(prompt)
+            raise EOFError
+        print(prompt + line)
+        return line
+    return fake

@@ -79,6 +79,23 @@ Fixtures:
                 analysis and humanslnet_server sessions on it
   vnets         GTP and analysis sessions on the tiny nets of model
                 versions 3, 5, 6, 7 (input features V3-V6)
+  match         play_match and a 3-bot play_round_robin at 5x5 on b1c6
+                nets (tests.test_torch_common.MATCH_*, ROUND_ROBIN_*),
+                match_cmd.SearchParams patched to temperature 0; the
+                round robin's matches cut by a max_moves bound into
+                match_cmd.play_match; holds the seed-5 weights
+  gatekeeper    run_gatekeeper on JAX exports of those weights: a first
+                model, then an accepted and a rejected candidate
+                (GATE_CALLS) under the same patches (max_moves bound into
+                gatekeeper_cmd.play_match); results and final directories
+  forward       forward_cmd.main on b1c6_s3.bin.gz: the empty 9x9 board
+                and TOOLS_SGF at turn 10, both -full (printed JSON)
+  evalsgf       sgf_cmds evalsgf on TOOLS_SGF at EVALSGF_VISITS (text)
+  play          play_cmd.main on b1c6_s3.bin.gz with input() scripted by
+                PLAY_INPUTS (transcript)
+  ckpt_clean    checkpoint_tools_cmd clean -bin-gz of a JAX checkpoint
+                whose EMA is the seed-4 b1c6 weights: the printed JSON
+                and the gunzipped .bin.gz bytes
 """
 
 from __future__ import annotations
@@ -1193,6 +1210,151 @@ def make_vnets():
                     "reportDuringSearchEvery)"})
 
 
+def _stdout_of(fn, *args):
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    return buf.getvalue()
+
+
+def make_match():
+    import functools
+    from katago_tpu.cli import match_cmd as JM
+    params = {s: jax_params(s) for s in C.MATCH_SEEDS}
+    apply = jax_model(SEARCH_SIZE).apply
+    orig_sp, orig_pm = JM.SearchParams, JM.play_match
+    JM.SearchParams = C.temperature_zero(orig_sp)
+    try:
+        match = JM.play_match(apply, params[3], apply, params[4],
+                              **C.MATCH_ARGS)
+        JM.play_match = functools.partial(
+            orig_pm, max_moves=C.ROUND_ROBIN_MAX_MOVES)
+        rr = JM.play_round_robin(
+            [(f"s{s}", apply, params[s]) for s in C.MATCH_SEEDS],
+            **C.ROUND_ROBIN_ARGS)
+    finally:
+        JM.SearchParams, JM.play_match = orig_sp, orig_pm
+    arrays = {"w5" + k[1:]: v for k, v in flat_params(params[5]).items()}
+    save("match", arrays, {
+        "match": match, "round_robin": rr, "seeds": list(C.MATCH_SEEDS),
+        "weights": "flax_params(b1c6 at 5, seed); seed 5 stored as w5/",
+        "patch": "match_cmd.SearchParams = temperature_zero(SearchParams)"
+                 "; round robin: match_cmd.play_match bound max_moves="
+                 f"{C.ROUND_ROBIN_MAX_MOVES}",
+        "match_args": C.MATCH_ARGS, "round_robin_args": C.ROUND_ROBIN_ARGS})
+
+
+def make_gatekeeper():
+    import functools
+    from katago_tpu.cli import gatekeeper_cmd as JG
+    from katago_tpu.cli import match_cmd as JM
+    orig_sp, orig_pm = JM.SearchParams, JG.play_match
+    JM.SearchParams = C.temperature_zero(orig_sp)
+    JG.play_match = functools.partial(orig_pm, max_moves=C.GATE_MAX_MOVES)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            dirs = {n: os.path.join(tmp, n) for n in
+                    ("test-models", "models", "rejected-models")}
+            t0 = time.time() - 1000.0
+            calls = []
+            for names, threshold in C.GATE_CALLS:
+                for name in names:
+                    seed = C.GATE_CANDIDATES[name]
+                    path = JCK.export_params(dirs["test-models"], name,
+                                             jax_params(seed))
+                    t = t0 + 10.0 * seed
+                    os.utime(path, (t, t))
+                calls.append(JG.run_gatekeeper(
+                    dirs["test-models"], dirs["models"],
+                    dirs["rejected-models"], win_threshold=threshold,
+                    **C.GATE_ARGS))
+            layout = {n: sorted(os.listdir(d)) for n, d in dirs.items()}
+    finally:
+        JM.SearchParams, JG.play_match = orig_sp, orig_pm
+    save("gatekeeper", {}, {
+        "calls": calls, "layout": layout, "gate_args": C.GATE_ARGS,
+        "gate_calls": C.GATE_CALLS,
+        "candidates": C.GATE_CANDIDATES,
+        "weights": "flax_params(b1c6 at 5, seed) (seed 5: match.npz w5/)",
+        "mtimes": "each export's mtime set to t0 + 10 * seed",
+        "patch": "match_cmd.SearchParams = temperature_zero(SearchParams)"
+                 "; gatekeeper_cmd.play_match bound max_moves="
+                 f"{C.GATE_MAX_MOVES}"})
+
+
+def make_forward():
+    from katago_tpu.cli import forward_cmd as JFWD
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sgf = Path(tmp) / "game.sgf"
+        sgf.write_text(C.TOOLS_SGF)
+        for name, args in C.FORWARD_CASES.items():
+            argv = ["-model", str(BIN_B1C6)] + [a.format(sgf=sgf)
+                                                 for a in args]
+            outs[name] = np.array(_stdout_of(JFWD.main, argv))
+    save("forward", outs, {"model": BIN_B1C6.name,
+                           "cases": "tests.test_torch_common.FORWARD_CASES"
+                                    " (sgf: TOOLS_SGF)"})
+
+
+def make_evalsgf():
+    from katago_tpu.cli import sgf_cmds as JSGF
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sgf = Path(tmp) / "game.sgf"
+        sgf.write_text(C.TOOLS_SGF)
+        for name, args in C.EVALSGF_CASES.items():
+            argv = ["evalsgf", str(sgf), "-model", str(BIN_B1C6),
+                    "-visits", str(C.EVALSGF_VISITS)] + args
+            outs[name] = np.array(_stdout_of(JSGF.main, argv))
+    save("evalsgf", outs, {"model": BIN_B1C6.name,
+                           "visits": C.EVALSGF_VISITS,
+                           "cases": "tests.test_torch_common.EVALSGF_CASES"
+                                    " on TOOLS_SGF"})
+
+
+def make_play():
+    from katago_tpu.cli import play_cmd as JPLAY
+    JPLAY.input = C.scripted_input(C.PLAY_INPUTS)
+    try:
+        out = _stdout_of(JPLAY.main, ["-model", str(BIN_B1C6)]
+                         + C.PLAY_ARGS)
+    finally:
+        del JPLAY.input
+    save("play", {"transcript": np.array(out)}, {
+        "model": BIN_B1C6.name, "args": C.PLAY_ARGS,
+        "inputs": C.PLAY_INPUTS,
+        "input": "play_cmd.input = scripted_input(PLAY_INPUTS)"})
+
+
+CLEAN_SEED, CLEAN_NAME = 4, "cleaned"
+
+
+def make_ckpt_clean():
+    import gzip
+    from katago_tpu.cli import checkpoint_tools_cmd as JCT
+    state = JSTEP.init_train_state(jax_params(CLEAN_SEED),
+                                   JSTEP.make_optimizer())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = JCK.save_checkpoint(os.path.join(tmp, "ckpt"), state, 0)
+        out_dir = os.path.join(tmp, "out")
+        printed = _stdout_of(JCT.main, [
+            "clean", "-ckpt", path, "-out", out_dir, "-name", CLEAN_NAME,
+            "-config", "b1c6", "-size", str(SEARCH_SIZE), "-bin-gz"])
+        with gzip.open(os.path.join(out_dir, f"{CLEAN_NAME}.bin.gz")) as f:
+            data = f.read()
+    # the printed paths lay in a temporary directory
+    printed = {k: v for k, v in json.loads(printed).items()
+               if k not in ("bin_gz", "export")}
+    save("ckpt_clean", {"bin": np.frombuffer(data, np.uint8)}, {
+        "printed": printed, "name": CLEAN_NAME,
+        "config": "b1c6", "size": SEARCH_SIZE,
+        "weights": f"init_train_state(flax_params(b1c6 at 5, seed "
+                   f"{CLEAN_SEED})): params = EMA = SWA, step 0"})
+
+
 MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "chase": make_chase, "ladder_exact": make_ladder_exact,
           "selfplay": make_selfplay, "resign": make_resign,
@@ -1207,7 +1369,10 @@ MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "desc_tf": make_desc_tf,
           "features_versions": make_features_versions,
           "pattern_search": make_pattern_search, "humansl": make_humansl,
-          "vnets": make_vnets}
+          "vnets": make_vnets, "match": make_match,
+          "gatekeeper": make_gatekeeper, "forward": make_forward,
+          "evalsgf": make_evalsgf, "play": make_play,
+          "ckpt_clean": make_ckpt_clean}
 
 
 def main() -> int:
