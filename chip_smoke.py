@@ -103,11 +103,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      CPU (every number within RAW_NN_ATOL), evalsgf, play_cmd with
      scripted input, checkpoint_tools show and clean -bin-gz (the
      cleaned .bin.gz through check_desc_net);
- 17. report: the card's name and power limit, each kernel's time beside
+ 17. the SGF tools (`run_sgftools_phase`) on phase 6's games and phase
+     7's .bin.gz (DescNet): summarize_sgfs, startposes, samplesgfs viewed
+     by viewstartposes, writetrainingdata read back in the pinned npz
+     schema, dataminesgfs (game mode, visits cut to DATAMINE_VISITS) and
+     checksgfhintpolicy; seconds and launches per command;
+ 18. genposes and genboard (`run_genposes_phase`): GENPOSES_N clumpy
+     19x19 positions scored by phase 7's .bin.gz; genboard_cmd train at
+     its defaults for GENBOARD_STEPS steps (its SGF replays on the card),
+     run on a 19x19 board, the GenBoard forward on the card and the CPU
+     within GENBOARD_ATOL;
+ 19. the book (`run_book_phase`): genbook at 19x19 on phase 7's .bin.gz,
+     BOOK_ROUNDS rounds of BOOK_NODES nodes (searches without ladder
+     planes: K2 only), the saved book loaded back equal, booktoposes
+     (its replays on the card), findbookbottlenecks and the HTML;
+ 20. contribute (`run_contribute_phase`): one task against a stub server
+     on 127.0.0.1 serving phase 7's .bin.gz with its sha256: download,
+     verify, selfplay cut to CONTRIB_MOVES moves, upload; the server
+     holds the npz to the pinned schema;
+ 21. data parallelism and the fused actor-learner (`run_parallel_phase`):
+     train_cmd -multi-host at world size 1 on NCCL against the plain
+     train_cmd step; play_games(mesh=...) at world size 1; the fused
+     actor-learner at bench.py main_fused's shape (128 games, bf16,
+     2 moves a chunk, learner batch 64) with visits cut to FUSED_VISITS:
+     env-steps/s, playouts/s, the ring's filled, finite losses;
+ 22. report: the card's name and power limit, each kernel's time beside
      its plain version's and its bound, launches per search, per
      selfplay move, per GTP session, per analysis session, per humanSL
      genmove, per transformer selfplay move, per b28c512nbt search, per
-     match move, per gatekeeper, per loop cycle and in the tools,
+     match move, per gatekeeper, per loop cycle, in the tools, per
+     datamine, per writetrainingdata, per genposes batch, per genboard
+     train, per book round, per booktoposes,
+     per contribute task, per mesh play_games and per fused step,
      playouts/s, a `kernels` JSON line, and the result line last.
 
 A kernel's time ("device-only") is that of N launches captured in one
@@ -190,18 +217,18 @@ B28_VISITS = 32              # phase 13's search (a few dozen visits)
 V17_MODEL = "b7c96h3tfrs"    # phase 13: exported as v17, served by DescNet
 MATCH_GAMES = 16             # phase 14: the match (trained vs seeded)
 MATCH_VISITS = 16
-MATCH_MOVES = 12             # max_moves: the games are cut (time limit)
+MATCH_MOVES = 4              # max_moves: the games are cut (time limit)
 GATE_SIZE = 5                # phase 14's gatekeeper: one candidate
 GATE_GAMES = 2
 GATE_VISITS = 4
-GATE_MOVES = 12              # max_moves of its match (time limit)
+GATE_MOVES = 4               # max_moves of its match (time limit)
 LOOP_SIZE = 7                # phase 15: one cycle (the JAX loop's -size)
 LOOP_GAMES = 8
 LOOP_VISITS = 4
 LOOP_TRAIN_STEPS = 2
 LOOP_BATCH = 64
 LOOP_GATE_GAMES = 2
-LOOP_MOVES = 12              # max_moves of its games (time limit)
+LOOP_MOVES = 8               # max_moves of its games (time limit)
 BENCH_BATCHES = "1,32,128"   # phase 16: benchmark_cmd's sweep
 BENCH_VISITS = 16
 BENCH_TRAIN_BATCH = 256      # benchmark_cmd -train (float32)
@@ -209,6 +236,30 @@ BENCH_TRAIN_STEPS = 3
 TOOLS_TURN = 10              # forward_cmd / evalsgf position in phase 6's game
 EVALSGF_VISITS = 32
 PLAY_VISITS = 16
+SGF17_RECORDS = 16           # phase 17: phase 6's first records as .sgf files
+SGF17_GAMES = 8              # and random legal games (phase 6's records hold
+SGF17_MOVES = 48             # its recorded moves only: a few a game)
+SGF17_SAMPLE_PROB = 0.1      # startposes' and samplesgfs' sampling
+DATAMINE_VISITS = 16         # phase 17's dataminesgfs (default 300), /5, /25
+DATAMINE_MIN_TURN = 36
+WTD_MAX_ROWS = 128           # phase 17's writetrainingdata rows
+GENPOSES_N = 128             # phase 18: genposes positions (clumpy)
+GENBOARD_STEPS = 2           # phase 18: genboard train steps at its defaults
+GENBOARD_ATOL = 1e-4         # GenBoard forward, card vs CPU (float32, no TF32)
+BOOK_ROUNDS = 3              # phase 19: gen_book rounds of BOOK_NODES nodes
+BOOK_NODES = 8
+BOOK_VISITS = 16
+CONTRIB_GAMES = 8            # phase 20: one contribute task
+CONTRIB_VISITS = 8
+CONTRIB_MOVES = 4            # max_moves of its games (the time limit)
+MESH_GAMES = 16              # phase 21: play_games(mesh=...) at world size 1
+MESH_VISITS = 8
+MESH_MOVES = 2
+FUSED_GAMES = 128            # phase 21: bench.py main_fused's shape
+FUSED_MOVES = 2              # moves a chunk
+FUSED_BATCH = 64             # learner batch
+FUSED_VISITS = 32            # cut from 600
+FUSED_STEPS = 2              # timed fused steps after one warm-up
 REF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_ref"
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -1914,6 +1965,511 @@ def run_tools_phase(train: dict, dev, work: Path) -> dict:
     return res
 
 
+def _launches_of(fn, *args, **kw):
+    """(fn's result, the kernel launches it made, its seconds with the
+    device synchronised at both ends)."""
+    before = _kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return res, {k: v - before[k] for k, v in _kernel_counts().items()}, \
+        time.time() - t0
+
+
+def _check_npz_schema(arrays: dict, size: int, what: str) -> None:
+    schema = json.loads((REF_DIR / "npz_schema.json").read_text())[
+        "per_row"][str(size)]
+    if sorted(arrays) != sorted(schema):
+        raise AssertionError(f"{what}: keys {sorted(arrays)}")
+    for k, (dtype, shape) in schema.items():
+        if str(arrays[k].dtype) != dtype or \
+                list(arrays[k].shape[1:]) != shape:
+            raise AssertionError(f"{what}: {k} is {arrays[k].dtype} "
+                                 f"{arrays[k].shape}")
+
+
+def random_sgf_games(dev, n: int, moves: int, seed: int) -> list:
+    """n games of `moves` random legal board moves at SIZE, played in
+    lockstep on the port's engine, as SGF texts with their area result."""
+    from katago_torch.dataio import sgf as S
+    from katago_torch.game import history as H
+    from katago_torch.game import rules as R
+
+    rules = R.Rules.tromp_taylorish()
+    games = H.new_game(SIZE, rules, moves + 8, g=n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nn = SIZE * SIZE
+    played = []
+    for _ in range(moves):
+        legal = H.legal_moves(games, SIZE)[:, :nn]
+        u = torch.rand(legal.shape, generator=gen, device=dev)
+        loc = torch.argmax(torch.where(legal, u, -1.0), dim=1)
+        loc = torch.where(legal.any(1), loc, nn)
+        played.append((games.pos.to_move.clone(), loc))
+        games, _ = H.step(games, loc, SIZE)
+    _, score = H.final_score(games, SIZE)
+    out = []
+    for g in range(n):
+        sc = float(score[g])
+        result = f"W+{sc:g}" if sc > 0 else f"B+{-sc:g}" if sc < 0 else "0"
+        out.append(S.write_sgf([(int(p[g]), int(l[g])) for p, l in played],
+                               SIZE, SIZE, komi=rules.komi, result=result,
+                               black_name="random-b", white_name="random-w"))
+    return out
+
+
+def run_sgftools_phase(train: dict, dev, work: Path) -> dict:
+    """Phase 17: the SGF tools on phase 6's records (its .sgfs, and its
+    first SGF17_RECORDS records as .sgf files), SGF17_GAMES random legal
+    games of SGF17_MOVES moves (random_sgf_games) and phase 7's .bin.gz
+    (DescNet): summarize_sgfs; startposes and samplesgfs, the latter
+    viewed by viewstartposes; writetrainingdata of WTD_MAX_ROWS rows (V7,
+    exact ladders), read back in the pinned npz schema; dataminesgfs in
+    game mode at DATAMINE_VISITS visits (tiers /5 and /25) from turn
+    DATAMINE_MIN_TURN (the random games' positions); checksgfhintpolicy
+    on startposes' hints. Each
+    command's seconds and kernel launches."""
+    import numpy as np
+
+    from katago_torch.cli import sgf_cmds as SGF
+    from katago_torch.cli import summarize_sgfs_cmd as SUM
+
+    bin_gz = train["bin_gz"]
+    sgfs = next(work.glob("tdata_*.sgfs"))
+    d = work / "sgf17"
+    d.mkdir()
+    lines = [ln for ln in sgfs.read_text().splitlines() if ln.strip()]
+    for i, line in enumerate(lines[:SGF17_RECORDS]):
+        (d / f"g{i:03d}.sgf").write_text(line + "\n")
+    for i, text in enumerate(random_sgf_games(dev, SGF17_GAMES,
+                                              SGF17_MOVES, SEED)):
+        (d / f"r{i:03d}.sgf").write_text(text + "\n")
+    out = work / "sgf17_out"
+    on = ["-device", str(dev)]
+    seconds, launches, printed = {}, {}, {}
+
+    def run(name, fn, argv):
+        text, launches[name], seconds[name] = _launches_of(
+            _stdout_of, fn, argv)
+        printed[name] = text
+        return text
+
+    summary = run("summarize", SUM.main, [str(sgfs)])
+    if not summary.startswith(f"{len(lines)} games, "):
+        raise AssertionError(f"summarize_sgfs: {summary!r}")
+    poses = out / "poses.jsonl"
+    out.mkdir()
+    run("startposes", SGF.main, ["startposes", "-sgf-dir", str(d),
+                                 "-output", str(poses), "-sample-prob",
+                                 str(SGF17_SAMPLE_PROB)] + on)
+    sampled = json.loads(run("samplesgfs", SGF.main, [
+        "samplesgfs", "--sgfdir", str(d), "--outdir", str(out / "samples"),
+        "--sample-prob", str(SGF17_SAMPLE_PROB)] + on).splitlines()[-1])
+    files = sorted((out / "samples").glob("startposes.*.txt"))
+    view = json.loads(run("viewstartposes", SGF.main, [
+        "viewstartposes"] + [a for f in files for a in (
+            "--start-poses-file", str(f))] + ["--check-legality"] + on
+    ).splitlines()[-1])
+    # a record holds the recorded moves only (phase 6 mixes cheap and
+    # full searches), so its replay may meet illegal context moves
+    if sampled["kept"] <= 0 or view["poses"] != sampled["kept"]:
+        raise AssertionError(f"samplesgfs {sampled}, view {view}")
+    wtd = json.loads(run("writetrainingdata", SGF.main, [
+        "writetrainingdata", "-sgf-dir", str(d), "-output",
+        str(out / "rows.npz"), "-size", str(SIZE), "-max-rows",
+        str(WTD_MAX_ROWS)] + on).splitlines()[-1])
+    with np.load(out / "rows.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    _check_npz_schema(arrays, SIZE, "writetrainingdata")
+    if arrays["globalTargetsNC"].shape[0] != wtd["rows"] or \
+            not 0 < wtd["rows"] <= WTD_MAX_ROWS:
+        raise AssertionError(f"writetrainingdata {wtd}")
+    mined = json.loads(run("dataminesgfs", SGF.main, [
+        "dataminesgfs", "--sgfdir", str(d), "--outdir", str(out / "mined"),
+        "--model", bin_gz, "--size", str(SIZE), "--game-mode", "--visits",
+        str(DATAMINE_VISITS), "--min-turn", str(DATAMINE_MIN_TURN)] + on
+    ).splitlines()[-1])
+    if mined["candidates"] <= 0 or mined.get("searched", 0) <= 0:
+        raise AssertionError(f"dataminesgfs {mined}")
+    hint = json.loads(run("checksgfhintpolicy", SGF.main, [
+        "checksgfhintpolicy", "--start-poses-file", str(poses), "--model",
+        bin_gz] + on).splitlines()[-1])
+    if hint["hints"] <= 0 or not 0.0 <= hint["meanPolicy"] <= 1.0:
+        raise AssertionError(f"checksgfhintpolicy {hint}")
+    _need_launches({"connected_labels":
+                    launches["dataminesgfs"]["connected_labels"],
+                    "chase_lanes": launches["dataminesgfs"]["chase_lanes"]},
+                   "phase 17's dataminesgfs")
+    res = {"seconds": seconds, "launches": launches, "summary": summary,
+           "samplesgfs": sampled, "writetrainingdata": wtd,
+           "dataminesgfs": mined, "checksgfhintpolicy": hint}
+    log(f"phase sgf tools: {len(lines)} games summarized, samplesgfs "
+        f"{sampled['kept']} poses ({view['illegal']} with an illegal "
+        f"context move), writetrainingdata "
+        f"{wtd['rows']} rows in the pinned schema, dataminesgfs {mined} "
+        f"at {DATAMINE_VISITS} visits, checksgfhintpolicy {hint}; seconds "
+        f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}; "
+        f"launches {json.dumps(launches)}")
+    return res
+
+
+def run_genposes_phase(train: dict, dev, work: Path) -> dict:
+    """Phase 18: genposes of GENPOSES_N clumpy positions at SIZE scored
+    by phase 7's .bin.gz; genboard_cmd train at its defaults (8 blocks x
+    96 channels, batch 16) for GENBOARD_STEPS steps on phase 17's games,
+    then run filling a SIZE x SIZE board; the trained GenBoard's forward
+    on the card and on the CPU within GENBOARD_ATOL."""
+    import random
+
+    from katago_torch.cli import genboard_cmd as GBC
+    from katago_torch.cli import genposes_cmd as GP
+
+    on = ["-device", str(dev)]
+    out = work / "genposes.jsonl"
+    printed, gp_launches, gp_s = _launches_of(_stdout_of, GP.main, [
+        "-out", str(out), "-n", str(GENPOSES_N), "-size", str(SIZE),
+        "-mode", "clumpy", "-model", train["bin_gz"]] + on)
+    gp = json.loads(printed.splitlines()[-1])
+    poses = [json.loads(ln) for ln in out.read_text().splitlines()]
+    if gp["generated"] != GENPOSES_N or gp["kept"] != len(poses) or \
+            not poses or any(p["xSize"] != SIZE for p in poses):
+        raise AssertionError(f"genposes {gp}")
+    _need_launches({"connected_labels": gp_launches["connected_labels"]},
+                   "phase 18's genposes")
+    pt = work / "genboard.pt"
+    printed, gb_launches, train_s = _launches_of(_stdout_of, GBC.main, [
+        "train", "-sgf-dir", str(work / "sgf17"), "-out", str(pt), "-size",
+        str(SIZE), "-steps", str(GENBOARD_STEPS)] + on)
+    trained = json.loads(printed.splitlines()[-1])
+    # its examples come from SGF replays on the card
+    _need_launches({"connected_labels": gb_launches["connected_labels"]},
+                   "phase 18's genboard train")
+    nn = SIZE * SIZE
+    board = "X" + "." * (SIZE - 1) + "O" + "?" * (nn - SIZE - 1)
+    t0 = time.time()
+    text = _stdout_of(GBC.main, ["run", "-model", str(pt), "-board", board,
+                                 "-batchsize", "2"] + on)
+    torch.cuda.synchronize()
+    run_s = time.time() - t0
+    boards = [b.split() for b in text.split("\n\n") if b.strip()]
+    if len(boards) != 2 or any(len(b) != nn or b[:SIZE + 1] != [
+            "X"] + ["."] * (SIZE - 1) + ["O"] or not set(b) <= set(".XO")
+            for b in boards):
+        raise AssertionError(f"genboard run printed {text!r}")
+    card, _ = GBC.load_model(str(pt), dev)
+    cpu, _ = GBC.load_model(str(pt), "cpu")
+    games = GBC.read_games(str(work / "sgf17"), SIZE)
+    ex = GBC.make_examples(games, SIZE, 16, random.Random(SEED), device=dev)
+    x_cpu, _, _ = GBC.batch_inputs(ex, SIZE, "cpu")
+    with torch.no_grad():
+        pc, ac = card(x_cpu.to(dev))
+        pp, ap = cpu(x_cpu)
+    err = max(float((pc.cpu() - pp).abs().max()),
+              float((ac.cpu() - ap).abs().max()))
+    if not err <= GENBOARD_ATOL:
+        raise AssertionError(f"GenBoard card vs CPU differs by {err}")
+    res = {"genposes": gp, "genposes_s": gp_s,
+           "genposes_launches": gp_launches, "genboard_train": trained,
+           "genboard_train_s": train_s, "genboard_launches": gb_launches, "genboard_run_s": run_s,
+           "genboard_max_abs_err": err}
+    log(f"phase genposes/genboard: genposes {gp} in {gp_s:.2f} s "
+        f"(launches {gp_launches}); genboard train {GENBOARD_STEPS} steps "
+        f"(8x96, batch 16) in {train_s:.2f} s (launches {gb_launches}), run of a {SIZE}x{SIZE} "
+        f"board (2 fills, {nn} points) in {run_s:.2f} s; forward card vs "
+        f"CPU within {err:.2e} (limit {GENBOARD_ATOL})")
+    return res
+
+
+def run_book_phase(train: dict, dev, work: Path) -> dict:
+    """Phase 19: book_cmd genbook at SIZE on phase 7's .bin.gz (DescNet),
+    BOOK_ROUNDS rounds of BOOK_NODES nodes at BOOK_VISITS visits (its
+    searches run without ladder planes, so only K2 launches); the saved
+    book loads back equal; then booktoposes (replaying each node's line
+    on the card), findbookbottlenecks and writebook (one HTML page per
+    node and an index)."""
+    from katago_torch.book.book import Book
+    from katago_torch.cli import book_cmd as BC
+
+    path = work / "book.json"
+    printed, launches, gen_s = _launches_of(_stdout_of, BC.main, [
+        "genbook", "-book", str(path), "-model", train["bin_gz"], "-size",
+        str(SIZE), "-visits", str(BOOK_VISITS), "-rounds", str(BOOK_ROUNDS),
+        "-nodes-per-round", str(BOOK_NODES), "-device", str(dev)])
+    gen = json.loads(printed.splitlines()[-1])
+    rounds = printed.count("book round")
+    if gen["nodes"] <= BOOK_ROUNDS or rounds != BOOK_ROUNDS:
+        raise AssertionError(f"genbook: {printed!r}")
+    _need_launches({"connected_labels": launches["connected_labels"]},
+                   "phase 19's book")
+    book = Book.load(str(path), dev)
+    book.save(str(work / "book2.json"))
+    if json.loads((work / "book2.json").read_text()) != \
+            json.loads(path.read_text()):
+        raise AssertionError("the saved book does not load back equal")
+    on = ["-device", str(dev)]
+    printed, poses_launches, poses_s = _launches_of(_stdout_of, BC.main, [
+        "booktoposes", "-book", str(path), "-out-dir", str(work / "bposes"),
+        "-enable-hints"] + on)
+    poses = json.loads(printed)
+    # booktoposes replays every node's line on the card
+    _need_launches({"connected_labels": poses_launches["connected_labels"]},
+                   "phase 19's booktoposes")
+    t0 = time.time()
+    necks = json.loads(_stdout_of(BC.main, [
+        "findbookbottlenecks", "-book", str(path), "-out",
+        str(work / "necks.jsonl")] + on))
+    html = json.loads(_stdout_of(BC.main, [
+        "writebook", "-book", str(path), "-out-dir", str(work / "html")]
+        + on))
+    host_s = time.time() - t0
+    pages = len(list((work / "html").glob("*.html")))
+    if poses["poses"] != gen["nodes"] or pages != gen["nodes"] + 1 or \
+            html["nodes"] != gen["nodes"]:
+        raise AssertionError(f"book tools: {poses}, {necks}, {pages} pages")
+    res = {"nodes": gen["nodes"], "gen_s": gen_s, "host_s": host_s,
+           "launches": launches,
+           "launches_per_round": {k: v / BOOK_ROUNDS
+                                  for k, v in launches.items()},
+           "booktoposes_s": poses_s, "booktoposes_launches": poses_launches,
+           "bottlenecks": necks["bottlenecks"]}
+    log(f"phase book: genbook {BOOK_ROUNDS} rounds x {BOOK_NODES} nodes at "
+        f"{BOOK_VISITS} visits -> {gen['nodes']} nodes in {gen_s:.2f} s "
+        f"(launches {launches}); loads back equal; booktoposes "
+        f"{poses['poses']} in {poses_s:.2f} s (launches {poses_launches}); "
+        f"bottlenecks {necks['bottlenecks']} and {pages} html pages in "
+        f"{host_s:.2f} s")
+    return res
+
+
+def run_contribute_phase(train: dict, dev, work: Path) -> dict:
+    """Phase 20: contribute_cmd.main for one task against a stub server
+    on 127.0.0.1 (a thread) that serves phase 7's .bin.gz with its
+    sha256: download, verify, CONTRIB_GAMES selfplay games at
+    CONTRIB_VISITS visits cut at CONTRIB_MOVES moves, upload; the server
+    holds the uploaded npz to the pinned schema."""
+    import base64
+    import hashlib
+    import io
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    import numpy as np
+
+    from katago_torch.cli import contribute_cmd as CC
+
+    model = Path(train["bin_gz"]).read_bytes()
+    digest = hashlib.sha256(model).hexdigest()
+    uploads = []
+
+    class Stub(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _send(self, body, ctype="application/json"):
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.end_headers()
+            self.wfile.write(body if isinstance(body, bytes)
+                             else json.dumps(body).encode())
+
+        def do_GET(self):
+            if self.path == "/models/m.bin.gz":
+                self._send(model, "application/octet-stream")
+            else:
+                self._send({"username": "smoke"})
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length", 0))
+            body = json.loads(self.rfile.read(n)) if n else {}
+            if self.path == "/api/tasks/":
+                self._send({"id": "smoke-1", "kind": "selfplay",
+                            "run": {"name": "smoke"}, "network": {
+                                "name": "m", "model_file": "/models/m.bin.gz",
+                                "model_file_sha256": digest}})
+                return
+            with np.load(io.BytesIO(base64.b64decode(body["npz_b64"]))) as z:
+                arrays = {k: z[k] for k in z.files}
+            _check_npz_schema(arrays, SIZE, "the uploaded npz")
+            uploads.append((body, arrays["globalTargetsNC"].shape[0]))
+            self._send({"ok": True})
+
+    srv = HTTPServer(("127.0.0.1", 0), Stub)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        printed, launches, sec = _launches_of(_stdout_of, CC.main, [
+            "-server", f"http://127.0.0.1:{srv.server_port}", "-username",
+            "u", "-password", "p", "-base-dir", str(work / "contribute"),
+            "-size", str(SIZE), "-visits", str(CONTRIB_VISITS),
+            "-games-per-task", str(CONTRIB_GAMES), "-max-tasks", "1",
+            "-max-moves", str(CONTRIB_MOVES), "-device", str(dev)])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=30)
+    from katago_torch.dataio import sgf as S
+    if len(uploads) != 1 or uploads[0][1] != uploads[0][0]["num_rows"] or \
+            uploads[0][1] <= 0 or json.loads(printed.splitlines()[-1]) != \
+            {"tasks_completed": 1} or len(S.parse_sgf(
+                uploads[0][0]["sgf"])[0].moves()) != CONTRIB_MOVES:
+        raise AssertionError(f"contribute: {printed!r}")
+    _need_launches(launches, "phase 20's contribute task")
+    log(f"phase contribute: one task ({CONTRIB_GAMES} games x "
+        f"{CONTRIB_MOVES} moves at {CONTRIB_VISITS} visits, "
+        f"{uploads[0][1]} rows uploaded in the pinned schema) in {sec:.2f} "
+        f"s; launches {launches}")
+    return {"seconds": sec, "rows": uploads[0][1], "launches": launches}
+
+
+def run_parallel_phase(dev, work: Path) -> dict:
+    """Phase 21: train_cmd -multi-host at world size 1 on NCCL against
+    the plain train_cmd: one step each of MODEL at batch TRAIN_BATCH on
+    phase 6's shard, loss within CHECK_LOSS_RTOL and updates within
+    CHECK_UPDATE_REL of the largest update; play_games(mesh=...) at world
+    size 1 (MESH_GAMES games, MESH_MOVES moves at MESH_VISITS visits);
+    then the fused actor-learner at bench.py main_fused's shape
+    (FUSED_GAMES games, MODEL in bf16, FUSED_MOVES moves a chunk, learner
+    batch FUSED_BATCH, SGD with momentum), visits cut to FUSED_VISITS,
+    one warm-up and FUSED_STEPS timed steps: env-steps/s, playouts/s,
+    the ring's filled, finite losses and launches per step."""
+    from katago_torch.cli import selfplay_cmd as SP
+    from katago_torch.cli import train_cmd as TCMD
+    from katago_torch.parallel import mesh as PM
+    from katago_torch.search.params import SearchParams
+    from katago_torch.selfplay import fused as FU
+    from katago_torch.selfplay.loop import play_games
+    from katago_torch.selfplay.playsettings import PlaySettings
+    from katago_torch.train import checkpoint as CK
+
+    args = ["-data-dir", str(work / "tdata"), "-size", str(SIZE), "-config",
+            MODEL, "-batch-size", str(TRAIN_BATCH), "-steps", "1", "-lr",
+            str(TRAIN_LR), "-device", str(dev)]
+    out = {}
+    for name, extra in (("plain", []), ("multi_host", ["-multi-host"])):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        printed = _stdout_of(TCMD.main, args + ["-ckpt-dir",
+                                                str(work / f"p21_{name}")]
+                             + extra)
+        out[name] = (json.loads(printed.splitlines()[-1]),
+                     CK.load_state_tree(CK.latest_checkpoint(
+                         str(work / f"p21_{name}")))["params"],
+                     time.time() - t0)
+    init = TCMD.make_model(SIZE, MODEL, "cpu", 0).state_dict()
+    (s1, p1, t1), (s2, p2, t2) = out["plain"], out["multi_host"]
+    loss_rel = abs(s2["final_loss"] - s1["final_loss"]) / \
+        abs(s1["final_loss"])
+    upd = max(float((p1[k].cpu() - init[k]).abs().max()) for k in init)
+    upd_err = max(float((p2[k].cpu() - p1[k].cpu()).abs().max())
+                  for k in init) / upd
+    if not (loss_rel <= CHECK_LOSS_RTOL and upd_err <= CHECK_UPDATE_REL):
+        raise AssertionError(f"-multi-host vs plain: loss {loss_rel:.2e}, "
+                             f"updates {upd_err:.2e}")
+    log(f"phase 21 multi-host: world size 1 on NCCL vs plain, loss within "
+        f"{loss_rel:.2e} (limit {CHECK_LOSS_RTOL}), updates within "
+        f"{upd_err:.2e} of the largest (limit {CHECK_UPDATE_REL}); "
+        f"{t2:.2f} s vs {t1:.2f} s")
+
+    model = SP.make_model(SIZE, MODEL, torch.bfloat16, dev, SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mesh = PM.initialize_multihost(None, 1, 0, dev)
+    try:
+        (data, stats), mesh_launches, mesh_s = _launches_of(
+            play_games, model, size=SIZE, num_games=MESH_GAMES,
+            visits=MESH_VISITS, max_moves=MESH_MOVES, gen=gen,
+            search_params=SearchParams.for_selfplay(),
+            play_settings=PlaySettings.for_testing(MESH_VISITS), mesh=mesh)
+    finally:
+        PM.shutdown()
+    if data.spatial.shape[0] != MESH_GAMES * MESH_MOVES or \
+            stats["moves_per_game"].shape != (MESH_GAMES,):
+        raise AssertionError(f"play_games(mesh) rows {data.spatial.shape}")
+    _need_launches(mesh_launches, "phase 21's play_games(mesh)")
+    log(f"phase 21 mesh: play_games at world size 1, {MESH_GAMES} games x "
+        f"{MESH_MOVES} moves at {MESH_VISITS} visits, "
+        f"{data.spatial.shape[0]} rows in {mesh_s:.2f} s; launches "
+        f"{mesh_launches}")
+
+    opt = torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9)
+    step = FU.make_fused_step(model, opt, size=SIZE, visits=FUSED_VISITS,
+                              batch_size=FUSED_BATCH,
+                              moves_per_chunk=FUSED_MOVES)
+    games = FU.new_games(SIZE, FUSED_GAMES, device=dev)
+    ring = FU.ReplayRing.create(max(4 * FUSED_GAMES * FUSED_MOVES, 4096),
+                                SIZE, dev)
+    (games, metrics), _, warm_s = _launches_of(step, games, ring, gen)
+    losses = [float(metrics["loss"])]
+    before = _kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(FUSED_STEPS):
+        games, metrics = step(games, ring, gen)
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / FUSED_STEPS
+    launches = {k: (v - before[k]) / FUSED_STEPS
+                for k, v in _kernel_counts().items()}
+    losses.append(float(metrics["loss"]))
+    filled = int(ring.filled)
+    want = (1 + FUSED_STEPS) * FUSED_MOVES * FUSED_GAMES
+    if filled != want or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"fused: filled {filled} (want {want}), "
+                             f"losses {losses}")
+    _need_launches(launches, "phase 21's fused steps")
+    env = FUSED_GAMES * FUSED_MOVES / dt
+    res = {"multi_host_loss_rel": loss_rel, "multi_host_update_rel": upd_err,
+           "mesh_s": mesh_s, "mesh_launches": mesh_launches,
+           "fused_warmup_s": warm_s, "fused_step_s": dt,
+           "env_steps_per_s": env, "playouts_per_s": env * FUSED_VISITS,
+           "filled": filled, "losses": losses,
+           "fused_launches_per_step": launches}
+    log(f"phase 21 fused: {FUSED_GAMES} games, {MODEL} bf16, "
+        f"{FUSED_MOVES} moves a chunk at {FUSED_VISITS} visits, learner "
+        f"batch {FUSED_BATCH}: warm-up {warm_s:.2f} s, {dt:.2f} s per step, "
+        f"{env:.2f} env-steps/s, {env * FUSED_VISITS:.1f} playouts/s, ring "
+        f"filled {filled}, losses {[round(x, 4) for x in losses]}, launches "
+        f"per step {launches}")
+    return res
+
+
+def run_m12_phases(train: dict, dev, work: Path, which=None) -> dict:
+    """Phases 17-21 (or the ones named in which), each timed; returns
+    their results by number."""
+    phases = {"17": lambda: run_sgftools_phase(train, dev, work),
+              "18": lambda: run_genposes_phase(train, dev, work),
+              "19": lambda: run_book_phase(train, dev, work),
+              "20": lambda: run_contribute_phase(train, dev, work),
+              "21": lambda: run_parallel_phase(dev, work)}
+    out = {}
+    for name, run in phases.items():
+        if which is not None and name not in which:
+            continue
+        t0 = time.time()
+        out[name] = run()
+        torch.cuda.empty_cache()
+        out[name]["phase_s"] = time.time() - t0
+        log(f"phase {name} in {out[name]['phase_s']:.1f} s")
+    return out
+
+
+def _m12_launches(m12: dict, kernel: str) -> dict:
+    """The kernels line's counts of phases 17-21 for one kernel."""
+    return {
+        "launches_sgftools_per_datamine":
+            m12["17"]["launches"]["dataminesgfs"][kernel],
+        "launches_writetrainingdata":
+            m12["17"]["launches"]["writetrainingdata"][kernel],
+        "launches_genposes_per_batch":
+            m12["18"]["genposes_launches"][kernel],
+        "launches_genboard_train": m12["18"]["genboard_launches"][kernel],
+        "launches_book_per_round": m12["19"]["launches_per_round"][kernel],
+        "launches_booktoposes": m12["19"]["booktoposes_launches"][kernel],
+        "launches_contribute_per_task": m12["20"]["launches"][kernel],
+        "launches_mesh_play_games": m12["21"]["mesh_launches"][kernel],
+        "launches_fused_per_step":
+            m12["21"]["fused_launches_per_step"][kernel]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--baseline", type=Path, default=None)
@@ -2156,8 +2712,13 @@ def main() -> int:
         loop = run_loop_phase(dev, work)
         torch.cuda.empty_cache()
         tools = run_tools_phase(train, dev, work)
+        torch.cuda.empty_cache()
 
-    # ---- 17. report ----
+        # ---- 17-21. the SGF tools, genposes and genboard, the book,
+        # contribute, data parallelism and the fused actor-learner ----
+        m12 = run_m12_phases(train, dev, work)
+
+    # ---- 22. report ----
     log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} (search 1), "
         f"{sp_out['playouts_per_s']:.1f} (selfplay, {SP_VISITS} visits, "
         f"tree reuse), {1e3 / gtp_out['playout_ms']:.1f} (one GTP game), "
@@ -2165,7 +2726,9 @@ def main() -> int:
         f"{tfo['selfplay']['playouts_per_s']:.1f} ({TF_MODEL} selfplay), "
         f"{fam['b28_playouts_per_s']:.1f} ({B28_MODEL} search, "
         f"{B28_VISITS} visits), {match['playouts_per_s']:.1f} (match, "
-        f"{MATCH_GAMES} games, {MATCH_VISITS} visits, float32)")
+        f"{MATCH_GAMES} games, {MATCH_VISITS} visits, float32), "
+        f"{m12['21']['playouts_per_s']:.1f} (fused actor-learner, "
+        f"{FUSED_GAMES} games, {FUSED_VISITS} visits)")
     kernels = [
         {"name": "chase_lanes", "route": "cuda",
          "source": "katago_torch/ops/csrc/chase.cu",
@@ -2185,6 +2748,7 @@ def main() -> int:
          "launches_gatekeeper": match["gate_launches"]["chase_lanes"],
          "launches_loop_cycle": loop["launches"]["chase_lanes"],
          "launches_tools": tools["launches"]["chase_lanes"],
+         **_m12_launches(m12, "chase_lanes"),
          "ms_one_game": one["k1_ms"], "plain_ms_one_game": one["k1_plain_ms"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
@@ -2207,6 +2771,7 @@ def main() -> int:
          "launches_gatekeeper": match["gate_launches"]["connected_labels"],
          "launches_loop_cycle": loop["launches"]["connected_labels"],
          "launches_tools": tools["launches"]["connected_labels"],
+         **_m12_launches(m12, "connected_labels"),
          "ms_one_game": one["k2_ms"], "plain_ms_one_game": one["k2_plain_ms"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,

@@ -14,7 +14,11 @@ the rest of the batch's games.
 Usage: python -m katago_torch.cli.selfplay_cmd -output-dir D
          [-models-dir M [-switch-nets]] [-device cpu] [-dtype float32]
          [-size 9] [-games-per-batch 32] [-visits 64] [-max-batches N]
-         [-config b2c16]
+         [-config b2c16] [-multi-host -dist-url U -world-size N -rank R]
+
+-multi-host splits each batch's games over the ranks of a
+torch.distributed process group (parallel/mesh.py), one process per
+card; rank 0 writes the output.
 
 Runs on CUDA unless `-device cpu` is given; with no CUDA device and no
 -device it raises.
@@ -61,10 +65,18 @@ def run_selfplay(output_dir: str, models_dir: str | None, *, size: int,
                  game_init=None, switch_nets: bool = False,
                  ladder_mode: str = "chase", device=None,
                  dtype=torch.float32, max_moves: int | None = None,
-                 log=print) -> dict:
+                 mesh=None, log=print) -> dict:
     """max_moves: cut every game after this many moves (default: the
-    play_games default, about 1.6 moves per point)."""
-    dev = resolve_device(device)
+    play_games default, about 1.6 moves per point).
+
+    mesh: a parallel.mesh.Mesh — each batch (size bucket) whose games
+    divide by its ranks is split over them (the reference's multi-GPU
+    selfplay, nneval.h:97); every rank plays the same batches and rank
+    0 alone writes the shards and records."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None and games_per_batch % mesh.world_size == 0:
+        log(f"selfplay game axis split over {mesh.world_size} ranks")
     model = make_model(size, config_name, dtype, dev)
     model_name = "random-init"
     if models_dir:
@@ -134,13 +146,16 @@ def run_selfplay(output_dir: str, models_dir: str | None, *, size: int,
                     grules, nh, comp, fork, starts = \
                         GI.specs_to_rules_arrays(bspecs, dev)
                     n_games = len(bspecs)
+                bmesh = mesh if (mesh is not None and
+                                 n_games % mesh.world_size == 0) else None
                 data, stats = play_games(
                     model_for(bsize), size=bsize, num_games=n_games,
                     visits=visits, rules=rules, search_params=sp, gen=gen,
                     device=dev, play_settings=ps, game_rules=grules,
                     num_handicap=nh, compensate_komi=comp, early_fork=fork,
                     start_samples=starts, ladder_mode=ladder_mode,
-                    max_moves=max_moves, params_provider=params_provider)
+                    max_moves=max_moves, params_provider=params_provider,
+                    mesh=bmesh)
                 arrays = data.to_npz_arrays(
                     bsize, stats["white_minus_black"],
                     komi_white=stats.get("komi_white"))
@@ -153,7 +168,7 @@ def run_selfplay(output_dir: str, models_dir: str | None, *, size: int,
             dt = time.time() - t0
             # one shard per (batch, size): mixed sizes can't share one npz
             # (spatial dims differ); the shuffler/trainer consume per-size
-            for bsize, arrays in shard_arrays:
+            for bsize, arrays in (shard_arrays if writer else []):
                 shard = os.path.join(
                     tdata_dir, f"batch{batch_i:06d}_{seed}_s{bsize}.npz")
                 # write-then-rename so concurrent readers never see a
@@ -161,10 +176,11 @@ def run_selfplay(output_dir: str, models_dir: str | None, *, size: int,
                 tmp = shard + ".tmp.npz"
                 np.savez_compressed(tmp, **arrays)
                 os.replace(tmp, shard)
-            with open(os.path.join(sgf_dir,
-                                   f"batch{batch_i:06d}_{seed}.sgfs"),
-                      "w") as f:
-                f.write("\n".join(sgf_lines) + "\n")
+            if writer:
+                with open(os.path.join(sgf_dir,
+                                       f"batch{batch_i:06d}_{seed}.sgfs"),
+                          "w") as f:
+                    f.write("\n".join(sgf_lines) + "\n")
 
             totals["games"] += b_games
             totals["rows"] += b_rows
@@ -223,6 +239,14 @@ def main(argv=None):
     ap.add_argument("-switch-nets", action="store_true",
                     help="poll -models-dir every 16 moves and switch to a "
                          "newer export mid-game")
+    ap.add_argument("-multi-host", action="store_true",
+                    help="split each batch's games over a torch.distributed "
+                         "process group (NCCL on CUDA, gloo on the CPU)")
+    ap.add_argument("-dist-url", default=None,
+                    help="-multi-host rendezvous, tcp://host:port (default "
+                         "at world size 1: a free localhost port)")
+    ap.add_argument("-world-size", type=int, default=1)
+    ap.add_argument("-rank", type=int, default=0)
     ap.add_argument("-ladder-mode", default="chase",
                     choices=["chase", "exact"],
                     help="in-search leaf ladder featurization (per-move "
@@ -235,14 +259,23 @@ def main(argv=None):
         cp = ConfigParser(args.init_config)
         game_init = GameInitParams.from_config(
             {k: cp.get_string(k) for k in cp.keys()})
-    totals = run_selfplay(args.output_dir, args.models_dir, size=args.size,
-                          games_per_batch=args.games_per_batch,
-                          visits=args.visits, max_batches=args.max_batches,
-                          config_name=args.config, seed=args.seed,
-                          data_quality=args.data_quality,
-                          game_init=game_init, switch_nets=args.switch_nets,
-                          ladder_mode=args.ladder_mode, device=args.device,
-                          dtype=DTYPES[args.dtype])
+    mesh = None
+    if args.multi_host:
+        from katago_torch.parallel import mesh as PM
+        mesh = PM.initialize_multihost(args.dist_url, args.world_size,
+                                       args.rank, args.device)
+    try:
+        totals = run_selfplay(
+            args.output_dir, args.models_dir, size=args.size,
+            games_per_batch=args.games_per_batch, visits=args.visits,
+            max_batches=args.max_batches, config_name=args.config,
+            seed=args.seed, data_quality=args.data_quality,
+            game_init=game_init, switch_nets=args.switch_nets,
+            ladder_mode=args.ladder_mode, device=args.device,
+            dtype=DTYPES[args.dtype], mesh=mesh)
+    finally:
+        if mesh is not None:
+            PM.shutdown()
     print(json.dumps(totals))
 
 

@@ -15,14 +15,18 @@ permutation of each file's rows, then one symmetry per batch from
 np.random.default_rng(seed)), so a seed gives the same rows. The net is
 float32 with TF32 off (train/train_step.py); fresh weights come from the
 port's seeded initializer (models/weights.py), not from JAX's.
-`-multi-host` raises NotImplementedError: DDP/NCCL is not ported, so the
-trainer runs on one device.
+`-multi-host` trains data-parallel over a torch.distributed process group
+(parallel/mesh.py; NCCL on the card, gloo on the CPU): every rank serves
+the same global batches and takes its slice of each, the gradients are
+all-reduced, and rank 0 alone writes the metrics, checkpoints and
+exports. Give each process `-dist-url tcp://host:port -world-size N
+-rank R` (at world size 1 a free localhost port is taken).
 
 Usage: python -m katago_torch.cli.train_cmd -data-dir D -ckpt-dir C
          -export-dir E [-device cpu] [-size 9] [-config b2c16]
          [-batch-size 64] [-steps 100] [-lr 6e-5]
          [-lr-schedule "(0,8.0),(550M,6.0)"] [-swa-period-samples N]
-         [-val-dir V]
+         [-val-dir V] [-multi-host [-dist-url U -world-size N -rank R]]
 
 Runs on CUDA unless `-device cpu` is given; with no CUDA device and no
 -device it raises.
@@ -48,9 +52,6 @@ from katago_torch.train import schedules as SCH
 from katago_torch.train.datagen import DataFileServer
 from katago_torch.train.train_step import (init_train_state, make_eval_step,
                                            make_optimizer, make_train_step)
-
-MULTI_DEVICE = ("data-parallel training over more than one device or host "
-                "(DDP/NCCL) is not ported")
 
 
 def _apply_symmetry(hb: dict, size: int, sym: int) -> dict:
@@ -159,7 +160,7 @@ def run_training(data_dir: str, ckpt_dir: str, export_dir: str | None, *,
                  log=print,
                  longterm_hours: float = 12.0,
                  device=None,
-                 timings: dict | None = None) -> dict:
+                 timings: dict | None = None, mesh=None) -> dict:
     """Returns the JAX package's summary (steps, checkpoint, rows_per_s,
     first_loss, final_loss, val_loss) plus "export" (the export
     directory) and "metrics" (every logged step's metrics).
@@ -167,10 +168,21 @@ def run_training(data_dir: str, ckpt_dir: str, export_dir: str | None, *,
     timings: optional dict that collects, synchronising the device at
     each boundary, the seconds per phase of the steps: data (next batch
     and symmetry, "data_s"), host to device ("h2d_s"), forward+backward
-    ("fwd_bwd_s") and optimizer+EMA ("opt_s")."""
-    dev = resolve_device(device)
+    ("fwd_bwd_s") and optimizer+EMA ("opt_s").
+
+    mesh: a parallel.mesh.Mesh to train data-parallel over its ranks
+    (batch_size is the global batch; it must divide by the ranks); only
+    rank 0 writes files."""
+    from katago_torch.parallel import mesh as PM
+    PM.check_divisible(batch_size, mesh, "batch-size")
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     model = make_model(size, config_name, dev, seed)
-    params = dict(model.named_parameters())
+    params = PM.replicate(dict(model.named_parameters()), mesh)
+    row0, rows = PM.process_batch_slice(batch_size, mesh)
+    if mesh is not None and mesh.world_size > 1:
+        log(f"data-parallel over {mesh.world_size} ranks ({rows} "
+            f"rows/rank)")
 
     latest = C.latest_checkpoint(ckpt_dir)
     meta = C.load_metadata(latest) if latest else {}
@@ -211,7 +223,8 @@ def run_training(data_dir: str, ckpt_dir: str, export_dir: str | None, *,
                 f"({max_train_per_data} train rows per data row)")
             steps = cap
 
-    train_step = make_train_step(model, optimizer, timings=timings)
+    train_step = make_train_step(model, optimizer, timings=timings,
+                                 mesh=mesh)
     eval_step = make_eval_step(model) if val_dir else None
     to_device = _ToDevice(dev)
 
@@ -239,7 +252,8 @@ def run_training(data_dir: str, ckpt_dir: str, export_dir: str | None, *,
     from katago_torch.train.watchers import GnormWatcher, MetricsLogger
     from katago_torch.utils.signals import GracefulShutdown
     watcher = GnormWatcher(log=log)
-    mlog = MetricsLogger(os.path.join(ckpt_dir, "metrics.json"))
+    mlog = MetricsLogger(os.path.join(ckpt_dir, "metrics.json")
+                         if writer else None)
     t0 = time.time()
     steps_done = 0
     with GracefulShutdown(log) as stop:
@@ -255,6 +269,8 @@ def run_training(data_dir: str, ckpt_dir: str, export_dir: str | None, *,
                     f"(no_repeat_files={no_repeat_files})")
                 break
             hb = _apply_symmetry(hb, size, int(rng.integers(0, 8)))
+            if mesh is not None:
+                hb = {k: v[row0:row0 + rows] for k, v in hb.items()}
             t = clock("data_s", t)
             batch = to_device(hb)
             clock("h2d_s", t)
@@ -276,7 +292,8 @@ def run_training(data_dir: str, ckpt_dir: str, export_dir: str | None, *,
                     f"policy={m['policy_loss']:.4f} "
                     f"value={m['value_loss']:.4f} "
                     f"gnorm={gn:.3f} lr={sched(i):.2e}")
-            if export_every and export_dir and (i + 1) % export_every == 0:
+            if export_every and export_dir and writer and \
+                    (i + 1) % export_every == 0:
                 C.export_params(export_dir,
                                 f"{config_name}-s{start_step + i + 1}",
                                 state.swa_params if export_swa
@@ -313,15 +330,17 @@ def run_training(data_dir: str, ckpt_dir: str, export_dir: str | None, *,
             "swa_sample_accum": swa.accum,
             "data_serve_state": serve_state,
             "val_metrics": val_metrics}
-    path = C.save_checkpoint(ckpt_dir, state, final_step, metadata=meta)
-    # periodic never-pruned snapshots (train.py longterm checkpoints)
-    lt = C.maybe_save_longterm(ckpt_dir, state, final_step,
-                               every_s=longterm_hours * 3600.0,
-                               metadata=meta)
+    path = lt = export_path = None
+    if writer:
+        path = C.save_checkpoint(ckpt_dir, state, final_step,
+                                 metadata=meta)
+        # periodic never-pruned snapshots (train.py longterm checkpoints)
+        lt = C.maybe_save_longterm(ckpt_dir, state, final_step,
+                                   every_s=longterm_hours * 3600.0,
+                                   metadata=meta)
     if lt:
         log(f"longterm checkpoint: {lt}")
-    export_path = None
-    if export_dir:
+    if export_dir and writer:
         export_path = C.export_params(
             export_dir, f"{config_name}-s{final_step}",
             state.swa_params if export_swa else state.ema_params)
@@ -376,7 +395,15 @@ def main(argv=None):
                          "ckpt-dir/longterm_checkpoints at this interval "
                          "(train.py:1884)")
     ap.add_argument("-multi-host", action="store_true",
-                    help=f"not supported: {MULTI_DEVICE}")
+                    help="data-parallel over a torch.distributed process "
+                         "group (NCCL on CUDA, gloo on the CPU)")
+    ap.add_argument("-dist-url", default=None,
+                    help="-multi-host rendezvous, tcp://host:port (default "
+                         "at world size 1: a free localhost port)")
+    ap.add_argument("-world-size", type=int, default=1,
+                    help="-multi-host: the number of ranks")
+    ap.add_argument("-rank", type=int, default=0,
+                    help="-multi-host: this process's rank")
     ap.add_argument("-device", default=None,
                     help="torch device (default: cuda; 'cpu' to run on "
                          "the CPU)")
@@ -384,23 +411,33 @@ def main(argv=None):
                     help="the net's compute dtype (float32, as the JAX "
                          "trainer's)")
     args = ap.parse_args(argv)
+    mesh = None
     if args.multi_host:
-        raise NotImplementedError(f"-multi-host: {MULTI_DEVICE}")
-    out = run_training(args.data_dir, args.ckpt_dir, args.export_dir,
-                       size=args.size, config_name=args.config,
-                       batch_size=args.batch_size, steps=args.steps,
-                       lr=args.lr, optimizer_kind=args.optimizer,
-                       lr_schedule=args.lr_schedule,
-                       lr_scale=args.lr_scale,
-                       lr_scale_auto=args.lr_scale_auto,
-                       lr_scale_auto2=args.lr_scale_auto2,
-                       swa_period_samples=args.swa_period_samples,
-                       swa_scale=args.swa_scale,
-                       val_dir=args.val_dir,
-                       no_repeat_files=args.no_repeat_files,
-                       max_train_per_data=args.max_train_per_data,
-                       longterm_hours=args.longterm_checkpoint_hours,
-                       device=args.device)
+        from katago_torch.parallel import mesh as PM
+        if args.batch_size % args.world_size != 0:
+            raise ValueError(f"batch-size {args.batch_size} not divisible "
+                             f"by {args.world_size} ranks")
+        mesh = PM.initialize_multihost(args.dist_url, args.world_size,
+                                       args.rank, args.device)
+    try:
+        out = run_training(args.data_dir, args.ckpt_dir, args.export_dir,
+                           size=args.size, config_name=args.config,
+                           batch_size=args.batch_size, steps=args.steps,
+                           lr=args.lr, optimizer_kind=args.optimizer,
+                           lr_schedule=args.lr_schedule,
+                           lr_scale=args.lr_scale,
+                           lr_scale_auto=args.lr_scale_auto,
+                           lr_scale_auto2=args.lr_scale_auto2,
+                           swa_period_samples=args.swa_period_samples,
+                           swa_scale=args.swa_scale,
+                           val_dir=args.val_dir,
+                           no_repeat_files=args.no_repeat_files,
+                           max_train_per_data=args.max_train_per_data,
+                           longterm_hours=args.longterm_checkpoint_hours,
+                           device=args.device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            PM.shutdown()
     print(json.dumps({k: v for k, v in out.items() if k != "metrics"}))
 
 

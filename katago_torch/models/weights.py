@@ -13,7 +13,10 @@ at gain 1, scale 1); biases and betas zero, gammas and RMSNorm scales
 one, the GAB frequencies geometric. Draws come from a torch.Generator,
 so the numbers differ from JAX's. The carry-over handles every leaf
 shape: 4-D and 2-D kernels are transposed, 1-D leaves (biases, betas,
-gammas, RMSNorm scales, GAB freqs) copied.
+gammas, RMSNorm scales, GAB freqs) copied. The same function carries a
+Flax GenBoard tree into models.genboard.GenBoardModel, whose modules are
+named after the Flax ones; its global-pooling `matg` matrices are not
+kernels and keep their [in, out] layout.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ _TRUNC_CORRECTION = 0.87962566103423978
 
 
 def from_flax_params(params_np: dict) -> dict:
-    """Flax params (the dict under "params", numpy leaves) -> state_dict."""
+    """Flax params (the dict under "params", numpy leaves) -> state_dict
+    of KataGoModel or GenBoardModel."""
     out = {}
 
     def walk(tree, prefix):

@@ -13,8 +13,14 @@ end.
 Everything runs on the caller's device (CUDA unless the caller passes
 device="cpu"); random draws come from the caller's torch.Generator, and
 the host-side draws (cheap/full mixing, opening lengths, komi) from a
-numpy generator seeded from it. Not ported: the JAX package's `mesh`
-(the game axis sharded over devices).
+numpy generator seeded from it. With a `mesh` (parallel/mesh.py) the
+game axis is split over the ranks of a torch.distributed process group:
+each rank sets up the whole batch, keeps its slice of the games, and the
+ranks agree each move on the reused visits and on whether every game has
+ended (as the JAX package's sharded arrays do); the recorded rows are
+gathered at the end. Each rank draws its device randomness from its own
+stream, so the games equal the unsharded run's where no such draw
+matters.
 """
 
 from __future__ import annotations
@@ -246,6 +252,22 @@ def _place_start_positions(games: H.GameState, start_samples: list,
     return games
 
 
+def _gather_games(mesh, rows: list, per_game: tuple, playouts: int):
+    """Every rank's move records and per-game arrays joined on the game
+    axis in rank order (the unsharded batch), and the playouts summed.
+    The ranks record in lockstep, so record i is the same move on
+    every rank."""
+    from katago_torch.parallel import mesh as PM
+    parts = PM.gather_objects((rows, per_game, playouts), mesh)
+    joined = []
+    for i, rec in enumerate(parts[0][0]):
+        joined.append({k: v if k == "row_visits" else np.concatenate(
+            [p[0][i][k] for p in parts], axis=0) for k, v in rec.items()})
+    arrays = tuple(np.concatenate([p[1][j] for p in parts], axis=0)
+                   for j in range(len(per_game)))
+    return joined, arrays, sum(p[2] for p in parts)
+
+
 def _set_row(store: torch.Tensor, g: int, v: torch.Tensor) -> torch.Tensor:
     out = store.clone()
     out[g] = v[0]
@@ -317,10 +339,22 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
     timings: optional dict that collects, synchronising the device at
     each boundary, the seconds spent in search, move choice, row
     featurization and board steps, the move counts, and the exact
-    solver's stats (under "ladder")."""
+    solver's stats (under "ladder").
+
+    mesh: a parallel.mesh.Mesh — each rank plays num_games / ranks of
+    the games (its slice; num_games must divide evenly) on mesh.device
+    and every rank returns the data and stats of all the games. The host
+    draws (komi, opening lengths, cheap or full searches) are made for
+    the whole batch on every rank. The device draws (root noise, move
+    sampling) are made per slice: rank 0 draws from gen, every other
+    rank from a generator seeded from gen's first draw and its rank, so
+    no two ranks' games share their draws. The games equal the
+    unsharded run's where no device draw matters (no root noise,
+    temperature 0, no policy-init openings)."""
+    from katago_torch.parallel import mesh as PM
     if mesh is not None:
-        raise NotImplementedError(
-            "sharding the game axis over devices (mesh) is not ported")
+        PM.check_divisible(num_games, mesh, "num_games")
+        device = mesh.device
     dev = resolve_device(device)
     gen = gen if gen is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -329,8 +363,9 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
     sp = (search_params or SearchParams.for_selfplay()).to_arr(dev)
     ps = play_settings or PS.PlaySettings.for_testing(visits)
     max_moves = max_moves or int(nn * 1.6) + 20
-    host_rng = np.random.default_rng(int(torch.randint(
-        0, 2 ** 31 - 1, (), generator=gen, device=dev)))
+    host_seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                  device=dev))
+    host_rng = np.random.default_rng(host_seed)
 
     def clock(key, t0):
         """Add the seconds since t0 to timings[key]; returns now."""
@@ -392,6 +427,20 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
         # fork games diverge with one uniform-random legal move at the end
         # of their (forced nonzero) opening
         init_len = np.where(early_fork, np.maximum(init_len, 2), init_len)
+    if mesh is not None:
+        # every host draw above was made for the whole batch; keep this
+        # rank's games
+        row0, num_games = PM.process_batch_slice(num_games, mesh)
+        mine = slice(row0, row0 + num_games)
+        games = T.tree_map(lambda x: x[mine], games)
+        komi_white, init_len = komi_white[mine], init_len[mine]
+        if early_fork is not None:
+            early_fork = early_fork[mine]
+        if mesh.rank > 0:
+            # this rank's own stream of device draws
+            gen = torch.Generator(device=dev).manual_seed(int(
+                np.random.SeedSequence((host_seed, mesh.rank))
+                .generate_state(1, np.uint64)[0]))
 
     rows = []  # host-side per-move records
     total_playouts = 0
@@ -405,7 +454,7 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
     t = clock("setup_s", time.perf_counter())
     for move_i in range(max_moves):
         done = games.pos.game_over.cpu().numpy() | (resigned_by != 0)
-        if done.all():
+        if PM.all_true(bool(done.all()), mesh):
             break
         if params_provider is not None and move_i % 16 == 0:
             # mid-game net switching (selfplay.cpp:336-343): a freshly
@@ -470,7 +519,8 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
             cv = res.child_visits.cpu().numpy()
             rv = cv[np.arange(num_games), moves.cpu().numpy()]
             live = ~done
-            reused_visits = int(rv[live].min()) if live.any() else 0
+            reused_visits = PM.min_int(
+                int(rv[live].min()) if live.any() else None, mesh, 0)
         total_playouts += int((~done).sum()) * max(n_new, 0)
         t = clock("choose_s", t)
 
@@ -527,9 +577,15 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
         games.pos.board.stones, size, True, True, True,
         games.rules.multi_suicide).cpu().numpy().astype(np.int32)
     game_over = games.pos.game_over.cpu().numpy()
+    move_nums = games.pos.move_num.cpu().numpy().astype(np.int32)
+    if mesh is not None:
+        rows, (komi_white, own, score_w, full_area, game_over, move_nums,
+               resigned_by), total_playouts = _gather_games(
+            mesh, rows, (komi_white, own, score_w, full_area, game_over,
+                         move_nums, resigned_by), total_playouts)
     stats = {
         "komi_white": komi_white,
-        "moves_per_game": games.pos.move_num.cpu().numpy().astype(np.int32),
+        "moves_per_game": move_nums,
         "white_minus_black": score_w,
         "white_wins": (score_w > 0).sum(),
         "black_wins": (score_w < 0).sum(),

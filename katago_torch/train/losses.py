@@ -115,10 +115,22 @@ def postprocess(raw: dict) -> dict:
     }
 
 
+def unowned_prop_rows(batch: dict) -> torch.Tensor:
+    """Each row's ownership-weighted unowned proportion of its target
+    (the seki loss's batch statistic, metrics_pytorch.py:210-216)."""
+    mask = batch["binaryInputNCHW"][:, 0, :, :]
+    target_ownership = batch["valueTargetsNCHW"][:, 0, :, :]
+    unowned_t = 1.0 - torch.square(target_ownership)
+    unowned_prop = torch.sum(unowned_t * mask, dim=(1, 2)) / \
+        (1.0 + torch.sum(mask, dim=(1, 2)))
+    return unowned_prop * batch["globalTargetsNC"][:, 27]
+
+
 def compute_losses(raw: dict, batch: dict, *,
                    scales: LossScales = LossScales(),
                    seki_ema: SekiEma | None = None,
-                   is_training: bool = True
+                   is_training: bool = True,
+                   unowned_prop: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, dict, SekiEma]:
     """All reference loss terms for one batch.
 
@@ -137,6 +149,10 @@ def compute_losses(raw: dict, batch: dict, *,
       valueTargetsNCHW [B, 5, H, W]    (decoded: own/seki in [-1,1],
                                         futurepos, scoring raw int8)
       qValueTargetsNCMove [B, 3, A]    (raw int16 scale)
+
+    unowned_prop: the seki statistic's batch mean when the batch is one
+    rank's slice of a larger batch (the mean over the whole batch);
+    default the mean of unowned_prop_rows(batch).
 
     Returns (total_loss_mean, metrics, new_seki_ema)."""
     pp = postprocess(raw)
@@ -278,9 +294,8 @@ def compute_losses(raw: dict, batch: dict, *,
     # seki (metrics_pytorch.py:196-248)
     owned_t = torch.square(target_ownership)
     unowned_t = 1.0 - owned_t
-    unowned_prop = torch.sum(unowned_t * mask, dim=(1, 2)) / \
-        (1.0 + mask_sum_hw)
-    unowned_prop = torch.mean(unowned_prop * w_ownership)
+    if unowned_prop is None:
+        unowned_prop = torch.mean(unowned_prop_rows(batch))
     if is_training:
         ema = SekiEma(sum=seki_ema.sum * 0.998 + unowned_prop.detach(),
                       weight=seki_ema.weight * 0.998 + 1.0)

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from katago_torch.train.losses import LossScales, SekiEma, compute_losses
+from katago_torch.train.losses import (LossScales, SekiEma, compute_losses,
+                                       unowned_prop_rows)
 
 
 @contextlib.contextmanager
@@ -153,7 +154,7 @@ def _forward(model, params, batch):
 
 def make_train_step(model, optimizer, ema_decay: float = 0.999,
                     scales: LossScales = LossScales(),
-                    timings: dict | None = None):
+                    timings: dict | None = None, mesh=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
     model: the port's KataGoModel (float32); it supplies the architecture,
@@ -164,7 +165,15 @@ def make_train_step(model, optimizer, ema_decay: float = 0.999,
 
     timings: optional dict that collects, synchronising the device at
     each boundary, the seconds spent in forward+backward ("fwd_bwd_s")
-    and in the optimizer update and EMA ("opt_s")."""
+    and in the optimizer update and EMA ("opt_s").
+
+    mesh: a parallel.mesh.Mesh when batch is this rank's slice of a
+    global batch (data parallelism). The loss is the whole batch's: its
+    sums over rows are divided by the global weight sum and the seki
+    statistic is the global mean (one all-reduce of three numbers before
+    the forward), each rank's gradient is scaled by its share of the
+    weight, and the gradients and metrics are summed over the ranks (one
+    all-reduce each), so every rank applies the same update."""
 
     def clock(key=None, t0=0.0):
         """Synchronise (when timing) and return now; with a key, add the
@@ -185,11 +194,8 @@ def make_train_step(model, optimizer, ema_decay: float = 0.999,
             params = {k: v.detach().requires_grad_(True)
                       for k, v in state.params.items()}
             raw = _forward(model, params, batch)
-            loss, metrics, seki_ema = compute_losses(
-                raw, batch, scales=scales, seki_ema=state.seki_ema,
-                is_training=True)
-            grads = dict(zip(params, torch.autograd.grad(
-                loss, list(params.values()))))
+            metrics, seki_ema, grads = _loss_grads(
+                raw, batch, params, scales, state.seki_ema, mesh)
             t = clock("fwd_bwd_s", t)
             with torch.no_grad():
                 updates, opt_state = optimizer.update(
@@ -206,6 +212,30 @@ def make_train_step(model, optimizer, ema_decay: float = 0.999,
                           state.step + 1, seki_ema), metrics
 
     return train_step
+
+
+def _loss_grads(raw, batch, params, scales, seki_ema, mesh):
+    """compute_losses on this rank's slice (the whole batch without a
+    mesh) as its share of the global batch's loss: (metrics and
+    gradients summed over the ranks, the seki EMA). Without a mesh the
+    share is 1 and the sums are the rank's own."""
+    from katago_torch.parallel.mesh import all_reduce_sum
+    gw = batch["globalTargetsNC"][:, 25]
+    rows = unowned_prop_rows(batch)
+    (stats,) = all_reduce_sum([torch.stack([
+        gw.sum(), rows.sum(), torch.tensor(float(rows.shape[0]),
+                                           device=gw.device)])], mesh)
+    loss, metrics, seki_ema = compute_losses(
+        raw, batch, scales=scales, seki_ema=seki_ema, is_training=True,
+        unowned_prop=stats[1] / stats[2])
+    share = torch.clamp(gw.sum(), min=1e-8) / torch.clamp(stats[0],
+                                                          min=1e-8)
+    grads = torch.autograd.grad(loss * share, list(params.values()))
+    names = list(metrics)
+    summed = all_reduce_sum(list(grads) + [torch.stack(
+        [metrics[k].detach() * share for k in names])], mesh)
+    return (dict(zip(names, summed[-1])), seki_ema,
+            dict(zip(params, summed[:-1])))
 
 
 def make_eval_step(model, scales: LossScales = LossScales()):

@@ -981,3 +981,224 @@ def scripted_input(lines):
         print(prompt + line)
         return line
     return fake
+
+
+# ---- SGF corpus of the SGF tools (tests/test_torch_sgftools.py) --------
+SGF_SIZE = 7
+SGF_SEED = 11
+
+
+def _random_line(size: int, n_moves: int, rng, pass_at=(), setup=(),
+                 prefix=()):
+    """n_moves seeded random legal moves on the port's engine (CPU) from
+    the setup stones and after the moves of prefix; a pass at each turn
+    in pass_at. Returns [(player, loc)] of the new moves, the players
+    alternating from black at the first move of prefix."""
+    from katago_torch.game import board as TB
+    nn = size * size
+    gs = TH.new_game(size, TR.Rules.tromp_taylorish(), 2 * nn + 32,
+                     device=CPU)
+    for color, loc in setup:
+        gs = TH.setup_stone(gs, loc, color, size)
+    for pla, loc in prefix:
+        gs, _ = TH.step(gs, torch.tensor([loc]), size)
+    moves = []
+    for t in range(len(prefix), len(prefix) + n_moves):
+        legal = to_np(TH.legal_moves(gs, size))[0, :nn]
+        on_board = np.flatnonzero(legal)
+        loc = nn if t in pass_at or not len(on_board) else \
+            int(rng.choice(on_board))
+        moves.append((TB.BLACK if t % 2 == 0 else TB.WHITE, loc))
+        gs, _ = TH.step(gs, torch.tensor([loc]), size)
+    return moves
+
+
+def _sgf_text(size: int, moves, *, result: str, black: str, white: str,
+              komi: float = 7.5, comments=None, setup=(), handicap: int = 0,
+              branches=()) -> str:
+    """An SGF of moves (comment text on the nodes of comments' move
+    indices) whose last node splits into the given branches."""
+    from katago_torch.dataio import sgf as TS
+    head = TS.write_sgf([], size, size, komi=komi, result=result,
+                        handicap=handicap, setup=list(setup),
+                        black_name=black, white_name=white)[:-1]
+
+    def nodes(line, start=0):
+        out = []
+        for i, (pla, loc) in enumerate(line):
+            c = (comments or {}).get(start + i)
+            out.append(f";{'B' if pla == 1 else 'W'}"
+                       f"[{TS.write_sgf_loc(loc, size, size)}]"
+                       + (f"C[{c}]" if c else ""))
+        return "".join(out)
+
+    return head + nodes(moves) + "".join(
+        f"({nodes(b, len(moves))})" for b in branches) + ")"
+
+
+@functools.lru_cache(maxsize=None)
+def sgf_corpus(size: int = SGF_SIZE, seed: int = SGF_SEED) -> dict:
+    """{file name: SGF text}: seeded random legal games at size x size
+    with names, results (B+, W+R, W+ with handicap and setup stones, a
+    draw), %SAMPLE% / %NOSAMPLE% comments, a pass, a game with two
+    variations, and a 9x9 game the size filters skip. Cached: callers
+    must not change it."""
+    rng = np.random.default_rng(seed)
+    nn = size * size
+    out = {}
+    out["g0.sgf"] = _sgf_text(size, _random_line(size, 30, rng),
+                              result="B+3.5", black="alice", white="bob",
+                              comments={5: "%SAMPLE%", 9: "%NOSAMPLE%",
+                                        14: "%SAMPLE%"})
+    out["g1.sgf"] = _sgf_text(size, _random_line(size, 26, rng,
+                                                 pass_at=(11,)),
+                              result="W+R", black="bob", white="carol")
+    setup = [(1, 8), (1, nn - 9)]
+    out["g2.sgf"] = _sgf_text(size, _random_line(size, 22, rng,
+                                                 setup=setup),
+                              result="W+12", black="carol", white="alice",
+                              komi=0.5, setup=setup, handicap=2)
+    out["g3.sgf"] = _sgf_text(size, _random_line(size, 28, rng),
+                              result="0", black="alice", white="carol")
+    trunk = _random_line(size, 24, rng)
+    out["g4.sgf"] = _sgf_text(
+        size, trunk[:16], result="B+R", black="bob", white="alice",
+        branches=[trunk[16:], _random_line(size, 4, rng,
+                                           prefix=trunk[:16])])
+    out["g5.sgf"] = _sgf_text(9, _random_line(9, 8, rng), result="W+1",
+                              black="dave", white="alice")
+    return out
+
+# sgf_cmds runs of the sgftools fixture: argv with {sgf} the corpus
+# directory, {out} the case's output directory, {model} b1c6_s3.bin.gz
+_DM = ["dataminesgfs", "--sgfdir", "{sgf}", "--outdir", "{out}",
+       "--model", "{model}", "--size", "7"]
+SGF_TOOL_CASES = {
+    "writetrainingdata": ["writetrainingdata", "-sgf-dir", "{sgf}",
+                          "-output", "{out}/rows.npz", "-size", "7"],
+    "writetrainingdata_cut": ["writetrainingdata", "-sgf-dir", "{sgf}",
+                              "-output", "{out}/rows.npz", "-size", "7",
+                              "-max-rows", "40", "-no-ladders"],
+    "startposes": ["startposes", "-sgf-dir", "{sgf}", "-output",
+                   "{out}/poses.jsonl", "-sample-prob", "0.2", "-seed",
+                   "3"],
+    "samplesgfs": ["samplesgfs", "--sgfdir", "{sgf}", "--outdir", "{out}",
+                   "--sample-prob", "0.25", "--seed", "1"],
+    "samplesgfs_weighted": [
+        "samplesgfs", "--sgfdir", "{sgf}", "--outdir", "{out}",
+        "--sample-prob", "0.5", "--turn-weight-lambda", "0.05",
+        "--after-pass-factor", "0.3", "--min-weight", "0.4",
+        "--force-sample-weight", "3", "--min-turn-number-board-area-prop",
+        "0.1", "--max-turn-number-board-area-prop", "0.5",
+        "--max-handicap", "1", "--seed", "2"],
+    "datamine_game": _DM + ["--game-mode", "--seed", "5", "--visits", "8",
+                            "--min-turn", "22"],
+    "datamine_tree": _DM + ["--tree-mode", "--max-policy", "0.04",
+                            "--turn-weight-lambda", "0.01", "--visits",
+                            "8", "--min-turn", "20"],
+    "datamine_surprise": _DM + ["--surprise-mode", "--surprise-sample-prob",
+                                "0.5", "--utility-threshold", "0.02",
+                                "--visits", "16", "--min-turn", "16"],
+}
+# viewstartposes / checksgfhintpolicy on the pose files a case wrote
+SGF_VIEW_CASES = {
+    "startposes": {"view_startposes": ["viewstartposes", "--min-weight",
+                                       "0.5"],
+                   "check_startposes": ["viewstartposes",
+                                        "--check-legality"]},
+    "samplesgfs_weighted": {"view_weighted": ["viewstartposes", "--idx",
+                                              "2"]},
+}
+# checksgfhintpolicy on the hint poses of startposes
+SGF_VIEW_CASES["startposes"]["hint_policy"] = [
+    "checksgfhintpolicy", "--model", "{model}"]
+NPZ_PROFILES = ("", "rank_5d")
+
+# genposes_cmd runs of the genposes fixture (7x7, b1c6_s3.bin.gz)
+GENPOSES_ARGS = {"size": 7, "n": 12, "min_moves": 4, "max_moves": 14,
+                 "seed": 4, "max_score": 30.0, "pickiness": 0.5}
+
+
+def genposes_argv(out: str, model: str, mode: str) -> list:
+    a = GENPOSES_ARGS
+    return ["-out", out, "-n", str(a["n"]), "-size", str(a["size"]),
+            "-mode", mode, "-min-moves", str(a["min_moves"]), "-max-moves",
+            str(a["max_moves"]), "-model", model, "-seed", str(a["seed"]),
+            "-max-score", str(a["max_score"]),
+            "-score-rejection-pickiness", str(a["pickiness"])]
+
+
+# the genboard fixture's net, inputs and training run
+GENBOARD_NET = {"size": 7, "channels": 8, "blocks": 5, "seed": 1,
+                "batch": 6, "fill_batch": 2, "fill_seed": 3}
+GENBOARD_TRAIN = {"size": 7, "channels": 8, "blocks": 4, "steps": 2,
+                  "batch": 6, "lr": 0.01, "seed": 2}
+
+
+def genboard_inputs(size: int, b: int, seed: int) -> dict:
+    """Seeded GenBoard inputs: boards, known masks (some unknown),
+    inference points, turn / noise / source values and point labels."""
+    rng = np.random.default_rng(seed)
+    nn = size * size
+    stones = rng.integers(0, 3, (b, nn)).astype(np.int32)
+    known = rng.random((b, nn)) < 0.6
+    points = rng.integers(0, nn, b).astype(np.int32)
+    return {"stones": stones, "known": known, "points": points,
+            "turn": rng.uniform(0, 80, b).astype(np.float32),
+            "stdev": rng.uniform(0, 20, b).astype(np.float32),
+            "source": rng.integers(0, 2, b).astype(np.float32),
+            "labels": stones[np.arange(b), points]}
+
+
+def genboard_pattern(size: int, b: int):
+    """b copies of a board pattern with a known corner and a known
+    centre point and the rest unknown: (stones int32[b, NN],
+    known bool[b, NN])."""
+    nn = size * size
+    stones = np.zeros((b, nn), np.int32)
+    known = np.zeros((b, nn), bool)
+    known[:, :size + 2] = True
+    stones[:, 1], stones[:, size] = 1, 2
+    known[:, nn // 2] = True
+    stones[:, nn // 2] = 1
+    return stones, known
+
+
+# the book fixture: gen_book at 5x5 and book_cmd's host commands on it
+BOOK_ARGS = {"visits": 8, "rounds": 2, "nodes_per_round": 4}
+BOOK_CMD_CASES = {
+    "checkbook": ["checkbook", "-book", "{book}"],
+    "booktoposes": ["booktoposes", "-book", "{book}", "-out-dir", "{out}",
+                    "-enable-hints", "-depth-weight", "1.5",
+                    "-depth-weight-scale", "2", "-policy-surprise-weight",
+                    "0.3", "-min-weight", "1.2"],
+    "findbookbottlenecks": ["findbookbottlenecks", "-book", "{book}",
+                            "-out", "{out}/bottlenecks.jsonl",
+                            "-winloss-delta", "0.01"],
+    "comparebooks": ["comparebooks", "-book", "{book}", "-book2",
+                     "{book2}"],
+}
+
+
+def book_hash_boards(n: int = 6, seed: int = 9) -> list:
+    """[(the 8 dihedral images of a seeded random board, player)]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        size = (5, 7, 9)[i % 3]
+        b = rng.integers(0, 3, (size, size)).astype(np.int8)
+        syms = []
+        for k in range(4):
+            r = np.rot90(b, k)
+            syms += [np.ascontiguousarray(r), np.ascontiguousarray(r.T)]
+        out.append((syms, 1 + i % 2))
+    return out
+
+
+# the fused fixture: one actor chunk and one learner step at 5x5
+FUSED_ARGS = {"games": 4, "over": [1], "max_moves": 24, "komi_stdev": 1.0,
+              "komi_seed": 3, "capacity": 8, "visits": 8, "moves": 3,
+              "batch": 8, "lr": 1e-3}
+
+# a malformed SGF line (the native scanner of the JAX package accepts it)
+SGF_BROKEN = "(;SZ[7]broken"

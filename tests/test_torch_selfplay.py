@@ -363,7 +363,10 @@ def test_selfplay_refusals(case, tmp_path, monkeypatch):
                      "-output-dir", str(tmp_path / "out"),
                      "-models-dir", str(tmp_path / "models")])
     else:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            LOOP.play_games(C.ref_model(5), size=5, num_games=2, visits=2,
-                            device="cpu", mesh=object())
+        # a game count that does not split over the mesh's ranks
+        from katago_torch.parallel.mesh import Mesh
+        mesh = Mesh(rank=0, world_size=2, device=torch.device("cpu"))
+        with pytest.raises(ValueError, match="not divisible"):
+            LOOP.play_games(C.ref_model(5), size=5, num_games=3, visits=2,
+                            device="cpu", mesh=mesh)
     assert not any(tmp_path.rglob("*.npz"))

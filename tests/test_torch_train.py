@@ -585,6 +585,8 @@ def test_train_cli_raises_without_cuda_or_for_multi_host(monkeypatch,
             "-batch-size", "8", "-steps", "1"]
     with pytest.raises(RuntimeError, match="no CUDA"):
         TCMD.main(args)
-    with pytest.raises(NotImplementedError):
-        TCMD.main(args + ["-multi-host", "-device", "cpu"])
+    # -multi-host: a batch that does not split over the ranks
+    with pytest.raises(ValueError, match="not divisible"):
+        TCMD.main(args + ["-multi-host", "-world-size", "3", "-device",
+                          "cpu"])
     assert not (tmp_path / "ckpt").exists()

@@ -1355,6 +1355,325 @@ def make_ckpt_clean():
                    f"{CLEAN_SEED})): params = EMA = SWA, step 0"})
 
 
+# ---- slice 8: the SGF tools, genboard / genposes, the book, contribute,
+# the fused actor-learner -------------------------------------------------
+
+def _write_corpus(d: Path) -> dict:
+    corpus = C.sgf_corpus()
+    d.mkdir(parents=True, exist_ok=True)
+    for name, text in corpus.items():
+        (d / name).write_text(text)
+    # an .sgfs of several games, one per line
+    (d / "more.sgfs").write_text("\n".join(
+        [corpus["g0.sgf"], corpus["g3.sgf"]]) + "\n")
+    return corpus
+
+
+def _dir_texts(d: Path) -> dict:
+    """The text files of d by name (npz files left out)."""
+    return {p.name: p.read_text() for p in sorted(d.iterdir())
+            if p.suffix != ".npz"}
+
+
+def make_sgftools():
+    """sgfscan, summarize_sgfs, the six sgf_cmds subcommands and
+    npz_tools on tests.test_torch_common.sgf_corpus (SGF_TOOL_CASES)."""
+    import dataclasses as dc
+    from katago_tpu.cli import npz_tools_cmd as JNPZ
+    from katago_tpu.cli import sgf_cmds as JSGF
+    from katago_tpu.cli import summarize_sgfs_cmd as JSUM
+    from katago_tpu.dataio import sgfscan as JSCAN
+    arrays, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        corpus = _write_corpus(tmp / "sgf")
+        out["scan"] = {name: dc.asdict(JSCAN.scan_sgf_or_parse(text))
+                       for name, text in corpus.items()}
+        out["native"] = JSCAN.have_native()
+        # a malformed line: the native scanner's summary, the parser's
+        # verdict (the JAX fallback when the library is absent)
+        native = JSCAN.scan_sgf(C.SGF_BROKEN)
+        out["broken"] = {
+            "native": dc.asdict(native) if native else None,
+            "parser": _parse_or_none(C.SGF_BROKEN) != []}
+        out["summarize"] = {
+            name: _stdout_of(JSUM.main, [str(tmp / "sgf")] + extra)
+            for name, extra in (("json", ["-json"]), ("text", []))}
+        for name, case in C.SGF_TOOL_CASES.items():
+            work = tmp / name
+            work.mkdir()
+            argv = [a.format(sgf=tmp / "sgf", out=work, model=BIN_B1C6)
+                    for a in case]
+            printed = _stdout_of(JSGF.main, argv)
+            out[name] = {"stdout": printed, "files": _dir_texts(work)}
+            for npz in work.glob("*.npz"):
+                with np.load(npz) as z:
+                    arrays.update({f"{name}/{k}": z[k] for k in z.files})
+            if name in C.SGF_VIEW_CASES:
+                for vname, vcase in C.SGF_VIEW_CASES[name].items():
+                    files = sorted(work.glob("*.txt")) + sorted(
+                        work.glob("*.jsonl"))
+                    vargv = [a for f in files if "hashes" not in f.name
+                             for a in ("--start-poses-file", str(f))]
+                    vargv = [vcase[0]] + vargv + [
+                        a.format(model=BIN_B1C6) for a in vcase[1:]]
+                    out[vname] = {"stdout": _stdout_of(JSGF.main, vargv)}
+        # npz_tools on seeded shards: summarize, then add-meta twice
+        d = tmp / "npz"
+        C.write_shards(d / "a", C.SGF_SIZE, [5, 7], 1)
+        C.write_shards(d / "b", C.SGF_SIZE, [3], 2)
+        (d / "b" / "bad.npz").write_bytes(b"not a zip")
+        out["npz_summarize"] = _stdout_of(
+            JNPZ.main, ["summarize", str(d / "a"), str(d / "b")]
+        ).replace(str(d), "{dir}")
+        (d / "b" / "bad.npz").unlink()
+        for prof in C.NPZ_PROFILES:
+            out[f"add_meta_{prof or 'selfplay'}"] = _stdout_of(
+                JNPZ.main, ["add-meta", "-dir", str(d), "-profile", prof,
+                            "-board-area", str(C.SGF_SIZE ** 2), "-force"])
+            for f in sorted(d.rglob("*.npz")):
+                with np.load(f) as z:
+                    arrays[f"meta_{prof or 'selfplay'}/"
+                           f"{f.parent.name}/{f.name}"] = \
+                        z["metadataInputNC"]
+    save("sgftools", arrays, {
+        "corpus": C.sgf_corpus(), "outputs": out,
+        "cases": "tests.test_torch_common.SGF_TOOL_CASES, SGF_VIEW_CASES, "
+                 "NPZ_PROFILES", "model": BIN_B1C6.name,
+        "shards": "write_shards(a, 7, [5, 7], 1), write_shards(b, 7, [3], "
+                  "2) and b/bad.npz (not a zip) for summarize"})
+
+
+def _gumbel_rows(key, steps: int, shape) -> np.ndarray:
+    """The Gumbel noise of `steps` jax.random.categorical draws made as
+    `key, sub = split(key)` then categorical(sub, logits[shape])."""
+    rows = []
+    for _ in range(steps):
+        key, sub = jax.random.split(key)
+        rows.append(np.asarray(jax.random.gumbel(sub, shape, jnp.float32)))
+    return np.stack(rows)
+
+
+def make_genposes():
+    """genposes_cmd.main at 7x7 in both modes on b1c6_s3.bin.gz
+    (GENPOSES_ARGS), with its games, leads and categorical noise."""
+    from katago_tpu.cli import genposes_cmd as JGP
+    from katago_tpu.models import desc as JD
+    from katago_tpu.search import mcts as JM
+    arrays, out = {}, {}
+    a = C.GENPOSES_ARGS
+    size, n, nn = a["size"], a["n"], a["size"] ** 2
+    apply = JD.make_desc_apply(JD.load_model(str(BIN_B1C6)))
+    evaluator = JM.make_nn_evaluator(apply, None, size, with_ladders=False)
+    for mode in ("random", "clumpy"):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "poses.jsonl")
+            printed = _stdout_of(JGP.main, C.genposes_argv(
+                path, str(BIN_B1C6), mode))
+            lines = Path(path).read_text()
+        budget = np.random.default_rng(a["seed"]).integers(
+            a["min_moves"], a["max_moves"] + 1, size=n)
+        key = jax.random.PRNGKey(a["seed"])
+        games = jax.jit(lambda k, b: JGP.generate_positions(
+            n, size, a["max_moves"], k, b, clumpy=(mode == "clumpy")))(
+                key, jnp.asarray(budget))
+        raw, _, _ = jax.jit(lambda gs: evaluator(
+            gs, JF.FeatureParams.default()))(games)
+        arrays.update({
+            f"{mode}/gumbel": _gumbel_rows(key, a["max_moves"], (n, nn)),
+            f"{mode}/budget": budget,
+            f"{mode}/stones": np.asarray(games.pos.board.stones),
+            f"{mode}/to_move": np.asarray(games.pos.to_move),
+            f"{mode}/move_num": np.asarray(games.pos.move_num),
+            f"{mode}/lead_mover": np.asarray(raw["miscvalue"][:, 2]) * 20.0})
+        out[mode] = {"stdout": printed, "poses": lines}
+    save("genposes", arrays, {"args": a, "outputs": out,
+                              "model": BIN_B1C6.name,
+                              "draws": "gumbel[t] = jax.random.gumbel(sub, "
+                                       "(n, nn)) after key, sub = "
+                                       "split(key), from PRNGKey(seed)"})
+
+
+def make_genboard():
+    """GenBoardModel (GENBOARD_NET) forward and loss on seeded inputs,
+    genboard_cmd train on the SGF corpus (GENBOARD_TRAIN) with its
+    initial params and its params npz, and sample_fill with its
+    permutation and noise."""
+    import random as pyrandom
+    from katago_tpu.cli import genboard_cmd as JGBC
+    from katago_tpu.models import genboard as JGB
+    net = C.GENBOARD_NET
+    size = net["size"]
+    model = JGB.GenBoardModel(num_channels=net["channels"],
+                              num_blocks=net["blocks"])
+    dummy = jnp.zeros((1, size, size, JGB.NUM_INPUT_CHANNELS))
+    params = model.init(jax.random.PRNGKey(net["seed"]), dummy)
+    arrays = {"p/" + "/".join(k.key for k in path): np.asarray(v)
+              for path, v in jax.tree_util.tree_flatten_with_path(
+                  params["params"])[0]}
+    inp = C.genboard_inputs(size, net["batch"], net["seed"])
+    x = JGB.build_inputs(*(jnp.asarray(inp[k]) for k in (
+        "stones", "known", "points", "turn", "stdev", "source")), size)
+    pl, al = model.apply(params, x)
+    main, aux = JGB.genboard_loss(pl, al, jnp.asarray(inp["labels"]),
+                                  jnp.asarray(inp["stones"]), x)
+    arrays.update({"inputs": np.asarray(x), "point_logits": np.asarray(pl),
+                   "aux_logits": np.asarray(al), "main": np.asarray(main),
+                   "aux": np.asarray(aux)})
+    # sample_fill with the fill's own key draws
+    b, nn = net["fill_batch"], size * size
+    stones, known = C.genboard_pattern(size, b)
+    rng = jax.random.PRNGKey(net["fill_seed"])
+    filled = JGB.sample_fill(model.apply, params, jnp.asarray(stones),
+                             jnp.asarray(known), size=size, rng=rng,
+                             turn=30.0, turn_stdev=5.0, source=0.0)
+    rng, perm_key = jax.random.split(rng)
+    arrays.update({"fill/order": np.asarray(jax.random.permutation(
+        perm_key, nn)), "fill/gumbel": _gumbel_rows(rng, nn, (b, 3)),
+        "fill/out": np.asarray(filled)})
+    # cmd_train on the corpus, and the examples its generator makes
+    t = C.GENBOARD_TRAIN
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_corpus(tmp / "sgf")
+        out = tmp / "gb.npz"
+        printed = _stdout_of(JGBC.cmd_train, argparse.Namespace(
+            sgf_dir=str(tmp / "sgf"), out=str(out), **t))
+        with np.load(out) as z:
+            arrays.update({"trained/" + k: z[k] for k in z.files})
+        tmodel = JGB.GenBoardModel(num_channels=t["channels"],
+                                   num_blocks=t["blocks"])
+        init = tmodel.init(jax.random.PRNGKey(t["seed"]), dummy)
+        arrays.update({"init/" + "/".join(k.key for k in path):
+                       np.asarray(v) for path, v in
+                       jax.tree_util.tree_flatten_with_path(
+                           init["params"])[0]})
+        games = [g for f in sorted((tmp / "sgf").glob("*.sgf*"))
+                 for line in f.read_text().split("\n") if line.strip()
+                 for g in _parse_or_none(line)]
+        games = [g for g in games if g.size == (size, size)]
+        ex = JGBC.make_examples(games, size, t["batch"],
+                                pyrandom.Random(t["seed"]))
+        for k, v in zip(("stones", "known", "pts", "labels", "aux", "turns",
+                         "stds"), ex):
+            arrays[f"examples/{k}"] = v
+    save("genboard", arrays, {
+        "net": net, "train": t, "train_stdout": printed,
+        "params": "GenBoardModel.init(PRNGKey(seed)) under p/, cmd_train's "
+                  "initial params under init/ and its npz under trained/",
+        "fill": "sample_fill(rng=PRNGKey(fill_seed), turn 30, stdev 5, "
+                "source 0) on genboard_pattern; order = permutation of "
+                "split(rng)[1], gumbel rows from split(rng)[0]",
+        "examples": "make_examples(corpus games at size, batch, "
+                    "Random(seed)), the first batch cmd_train draws"})
+
+
+def _parse_or_none(text):
+    from katago_tpu.dataio import sgf as JS
+    try:
+        return JS.parse_sgf(text)
+    except Exception:
+        return []
+
+
+def make_book():
+    """gen_book at 5x5 on b1c6 (weights seed 3; BOOK_ARGS), its JSON,
+    HTML pages and the host commands of book_cmd on it; canonical_hash
+    of seeded boards under their 8 symmetries."""
+    from katago_tpu.book import book as JB
+    from katago_tpu.cli import book_cmd as JBC
+    a = C.BOOK_ARGS
+    params = jax_params()
+    book = JB.gen_book(jax_model(SEARCH_SIZE).apply, params,
+                       size=SEARCH_SIZE, visits=a["visits"],
+                       rounds=a["rounds"],
+                       nodes_per_round=a["nodes_per_round"],
+                       log=lambda *_: None)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        path = tmp / "book.json"
+        book.save(str(path))
+        out["book"] = path.read_text()
+        book.write_html(str(tmp / "html"))
+        out["html"] = _dir_texts(tmp / "html")
+        for name, argv in C.BOOK_CMD_CASES.items():
+            work = tmp / name
+            work.mkdir()
+            argv = [x.format(book=path, out=work, book2=tmp / "b2.json")
+                    for x in argv]
+            if name == "comparebooks":
+                b2 = JB.Book.load(str(path))
+                b2.nodes.pop(sorted(b2.nodes)[-1])
+                b2.nodes[b2.root_hash].recursive.winloss += 0.25
+                b2.save(str(tmp / "b2.json"))
+            out[name] = {"stdout": _stdout_of(JBC.main, argv).replace(
+                str(tmp), "{tmp}"), "files": _dir_texts(work)}
+    boards = C.book_hash_boards()
+    hashes = [[JB.canonical_hash(b, pla, b.shape[-1]) for b in syms]
+              for syms, pla in boards]
+    save("book", {}, {"args": a, "outputs": out, "hashes": hashes,
+                      "weights": f"weights_b1c6_s{WEIGHT_SEED}",
+                      "search_params": "SearchParams() (gen_book's "
+                                       "default), PRNGKey(7)"})
+
+
+def make_fused():
+    """One actor chunk at 5x5 on b1c6 (weights seed 3) at temperature 0
+    with root noise off (FUSED_ARGS): 4 games, game 1 over at the start,
+    a ring of capacity 8 (it wraps); then one learner step (SGD with
+    momentum) on indices drawn from PRNGKey(6)."""
+    from katago_tpu.selfplay import fused as JFU
+    a = C.FUSED_ARGS
+    size = SEARCH_SIZE
+    params = jax_params()
+    apply = jax_model(size).apply
+    normals = np.asarray(jax.random.normal(jax.random.PRNGKey(a["komi_seed"]),
+                                           (a["games"],)))
+    games = JFU.new_games(size, a["games"], max_moves=a["max_moves"],
+                          komi_stdev=a["komi_stdev"],
+                          rng=jax.random.PRNGKey(a["komi_seed"]))
+    over = np.zeros(a["games"], bool)
+    over[list(a["over"])] = True
+    games = games._replace(pos=games.pos._replace(
+        game_over=jnp.asarray(over)))
+    replay = JFU.ReplayRing.create(a["capacity"], size)
+    actor = jax.jit(JFU.make_actor_chunk(
+        apply, size=size, visits=a["visits"],
+        search_params=dataclasses.replace(JParams.for_selfplay(),
+                                          root_noise_enabled=False,
+                                          **C.TEMPERATURE_ZERO),
+        moves_per_chunk=a["moves"]))
+    games2, replay2 = actor(params, games, replay, jax.random.PRNGKey(5))
+    arrays = {f"ring/{k}": np.asarray(v)
+              for k, v in replay2._asdict().items()}
+    arrays.update({"normals": normals,
+                   "komi": np.asarray(games.rules.komi),
+                   "final_stones": np.asarray(games2.pos.board.stones),
+                   "final_move_num": np.asarray(games2.pos.move_num),
+                   "final_komi": np.asarray(games2.rules.komi)})
+    import optax
+    opt = optax.sgd(a["lr"], momentum=0.9)
+    learner = JFU.make_learner_step(apply, opt, a["batch"])
+    rng = jax.random.PRNGKey(6)
+    idx = jax.random.randint(rng, (a["batch"],), 0,
+                             jnp.maximum(replay2.filled, 1),
+                             dtype=jnp.int32)
+    new_params, _, metrics = learner(params, opt.init(params), replay2, rng)
+    arrays["learner/idx"] = np.asarray(idx)
+    arrays.update({f"learner/{k}": np.asarray(v)
+                   for k, v in metrics.items()})
+    arrays.update({"after/" + k[2:]: v
+                   for k, v in flat_params(new_params).items()})
+    save("fused", arrays, {
+        "args": a, "weights": f"weights_b1c6_s{WEIGHT_SEED}",
+        "search_params": "for_selfplay, root noise off, TEMPERATURE_ZERO",
+        "actor_key": "PRNGKey(5)", "learner_key": "PRNGKey(6)",
+        "optimizer": "optax.sgd(lr, momentum=0.9)",
+        "komi": "new_games(komi_stdev, rng=PRNGKey(komi_seed)); normals = "
+                "jax.random.normal(PRNGKey(komi_seed), (games,))"})
+
+
 MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "chase": make_chase, "ladder_exact": make_ladder_exact,
           "selfplay": make_selfplay, "resign": make_resign,
@@ -1372,7 +1691,9 @@ MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "vnets": make_vnets, "match": make_match,
           "gatekeeper": make_gatekeeper, "forward": make_forward,
           "evalsgf": make_evalsgf, "play": make_play,
-          "ckpt_clean": make_ckpt_clean}
+          "ckpt_clean": make_ckpt_clean, "sgftools": make_sgftools,
+          "genposes": make_genposes, "genboard": make_genboard,
+          "book": make_book, "fused": make_fused}
 
 
 def main() -> int:
