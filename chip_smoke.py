@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--baseline DIR]
 
 Phases (any failure raises and exits non-zero; nothing is caught):
-  1. build both CUDA kernels from katago_torch/ops/csrc (one nvcc each,
-     in parallel) and print the build time;
+  1. build both CUDA kernels from katago_torch/ops/csrc (one nvcc each)
+     and both C++ host libraries from katago_torch/dataio/csrc (one g++
+     each), all in parallel, and print the build times;
   2. K2 connected_labels vs its plain torch version on the cases of
      katago_torch/ops/cases.py (a spiral, a serpentine, a checkerboard,
      a full and an empty board, 128 random mid-game 19x19 boards) —
@@ -127,15 +128,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      actor-learner at bench.py main_fused's shape (128 games, bf16,
      2 moves a chunk, learner batch 64) with visits cut to FUSED_VISITS:
      env-steps/s, playouts/s, the ring's filled, finite losses;
- 22. report: the card's name and power limit, each kernel's time beside
+ 22. the fused step across ranks, the JAX import and the host libraries
+     (`run_slice9_phase`): the fused step at phase 21's shape with a mesh
+     at world size 1 on NCCL against the plain step on the same draws
+     (ring rows, cursor and filled exactly, loss within
+     FUSED22_LOSS_RTOL, parameters within FUSED22_UPDATE_REL of the
+     largest update, both launching K1 and K2); a small JAX checkpoint
+     (tests/data/torch_ref/jax_ckpt.npz, b1c6 at 5x5: the card machine
+     has no JAX) imported by checkpoint_tools_cmd import-jax and resumed
+     by train_cmd for one step in float32, within JAX_IMPORT_ATOL of the
+     JAX step; the C++ SGF scanner over phase 17's records equal to the
+     parser (summarize_sgfs too) and the symmetry transforms of phase
+     7's batch equal to numpy, each timed beside its plain version;
+ 23. report: the card's name and power limit, each kernel's time beside
      its plain version's and its bound, launches per search, per
      selfplay move, per GTP session, per analysis session, per humanSL
      genmove, per transformer selfplay move, per b28c512nbt search, per
      match move, per gatekeeper, per loop cycle, in the tools, per
      datamine, per writetrainingdata, per genposes batch, per genboard
      train, per book round, per booktoposes,
-     per contribute task, per mesh play_games and per fused step,
-     playouts/s, a `kernels` JSON line, and the result line last.
+     per contribute task, per mesh play_games, per fused step and per
+     mesh fused step, playouts/s, a `kernels` JSON line, and the result
+     line last.
 
 A kernel's time ("device-only") is that of N launches captured in one
 CUDA graph and replayed, timed with CUDA events, over N: the device's
@@ -259,7 +273,11 @@ FUSED_GAMES = 128            # phase 21: bench.py main_fused's shape
 FUSED_MOVES = 2              # moves a chunk
 FUSED_BATCH = 64             # learner batch
 FUSED_VISITS = 32            # cut from 600
-FUSED_STEPS = 2              # timed fused steps after one warm-up
+FUSED22_LOSS_RTOL = 1e-6     # phase 22: the mesh step vs the plain step
+FUSED22_UPDATE_REL = 1e-6    # of the largest update
+JAX_IMPORT_ATOL = 1e-5       # phase 22: the imported run's step vs JAX's
+SCAN_REPEATS = 5             # phase 22: timed passes over the records
+SYM_REPEATS = 5              # and over the 7 symmetries of the batch
 REF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_ref"
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 67e12
@@ -271,6 +289,18 @@ OLD_SIGNATURES = {
     "labels": {"connected_labels_launch": [_P, _P, _I, _I, _P]},
     "chase": {"chase_lanes_launch": [_P] * 8 + [_I] * 3 + [_P]},
 }
+
+
+def build_everything() -> tuple[float, float]:
+    """Both CUDA kernels (nvcc) and both C++ host libraries (g++), every
+    source compiled at once; (kernel seconds, host seconds)."""
+    import concurrent.futures
+
+    from katago_torch.ops import _build, _hostbuild
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        kernels = ex.submit(_build.build_all)
+        host = ex.submit(_hostbuild.build_all)
+        return kernels.result(), host.result()
 
 
 def log(*a):
@@ -2331,8 +2361,9 @@ def run_parallel_phase(dev, work: Path) -> dict:
     then the fused actor-learner at bench.py main_fused's shape
     (FUSED_GAMES games, MODEL in bf16, FUSED_MOVES moves a chunk, learner
     batch FUSED_BATCH, SGD with momentum), visits cut to FUSED_VISITS,
-    one warm-up and FUSED_STEPS timed steps: env-steps/s, playouts/s,
-    the ring's filled, finite losses and launches per step."""
+    one step, the first at this shape (phase 22 times two more, warm):
+    env-steps/s, playouts/s, the ring's filled, a finite loss and the
+    step's launches."""
     from katago_torch.cli import selfplay_cmd as SP
     from katago_torch.cli import train_cmd as TCMD
     from katago_torch.parallel import mesh as PM
@@ -2398,48 +2429,290 @@ def run_parallel_phase(dev, work: Path) -> dict:
     games = FU.new_games(SIZE, FUSED_GAMES, device=dev)
     ring = FU.ReplayRing.create(max(4 * FUSED_GAMES * FUSED_MOVES, 4096),
                                 SIZE, dev)
-    (games, metrics), _, warm_s = _launches_of(step, games, ring, gen)
-    losses = [float(metrics["loss"])]
-    before = _kernel_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    for _ in range(FUSED_STEPS):
-        games, metrics = step(games, ring, gen)
-    torch.cuda.synchronize()
-    dt = (time.time() - t0) / FUSED_STEPS
-    launches = {k: (v - before[k]) / FUSED_STEPS
-                for k, v in _kernel_counts().items()}
-    losses.append(float(metrics["loss"]))
+    _reset_kernel_counts()
+    (games, metrics), launches, dt = _launches_of(step, games, ring, gen)
+    loss = float(metrics["loss"])
     filled = int(ring.filled)
-    want = (1 + FUSED_STEPS) * FUSED_MOVES * FUSED_GAMES
-    if filled != want or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"fused: filled {filled} (want {want}), "
-                             f"losses {losses}")
-    _need_launches(launches, "phase 21's fused steps")
+    if filled != FUSED_MOVES * FUSED_GAMES or not math.isfinite(loss):
+        raise AssertionError(f"fused: filled {filled} (want "
+                             f"{FUSED_MOVES * FUSED_GAMES}), loss {loss}")
+    _need_launches(launches, "phase 21's fused step")
     env = FUSED_GAMES * FUSED_MOVES / dt
     res = {"multi_host_loss_rel": loss_rel, "multi_host_update_rel": upd_err,
            "mesh_s": mesh_s, "mesh_launches": mesh_launches,
-           "fused_warmup_s": warm_s, "fused_step_s": dt,
-           "env_steps_per_s": env, "playouts_per_s": env * FUSED_VISITS,
-           "filled": filled, "losses": losses,
-           "fused_launches_per_step": launches}
+           "fused_step_s": dt, "env_steps_per_s": env,
+           "playouts_per_s": env * FUSED_VISITS, "filled": filled,
+           "loss": loss, "fused_launches_per_step": launches}
     log(f"phase 21 fused: {FUSED_GAMES} games, {MODEL} bf16, "
         f"{FUSED_MOVES} moves a chunk at {FUSED_VISITS} visits, learner "
-        f"batch {FUSED_BATCH}: warm-up {warm_s:.2f} s, {dt:.2f} s per step, "
-        f"{env:.2f} env-steps/s, {env * FUSED_VISITS:.1f} playouts/s, ring "
-        f"filled {filled}, losses {[round(x, 4) for x in losses]}, launches "
-        f"per step {launches}")
+        f"batch {FUSED_BATCH}: one step (the first at this shape) in "
+        f"{dt:.2f} s, {env:.2f} env-steps/s, {env * FUSED_VISITS:.1f} "
+        f"playouts/s, ring filled {filled}, loss {loss:.4f}, launches "
+        f"{launches}")
     return res
 
 
+def _fused_mesh_vs_plain(dev) -> dict:
+    """Phase 22's fused step with a mesh at world size 1 (NCCL) and the
+    plain step, each one step of phase 21's shape from the same weights,
+    games, empty ring and generator seed, with cuDNN deterministic: the
+    rings, cursors and games equal exactly, the losses within
+    FUSED22_LOSS_RTOL, the parameters within FUSED22_UPDATE_REL of the
+    largest update; each step's seconds, env-steps/s and K1/K2 launches
+    (counts set to 0 before each step and read after it). The mesh's
+    first collective, which sets up the NCCL communicator once per
+    process group, is made and timed before its step."""
+    from katago_torch.cli import selfplay_cmd as SP
+    from katago_torch.parallel import mesh as PM
+    from katago_torch.selfplay import fused as FU
+
+    model = SP.make_model(SIZE, MODEL, torch.bfloat16, dev, SEED)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cap = max(4 * FUSED_GAMES * FUSED_MOVES, 4096)
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("plain", "mesh"):
+            model.load_state_dict(init)
+            opt = torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9)
+            mesh = PM.initialize_multihost(None, 1, 0, dev) \
+                if name == "mesh" else None
+            try:
+                if mesh is not None:
+                    t0 = time.time()
+                    PM.all_reduce_sum([torch.zeros(1, device=dev)], mesh)
+                    torch.cuda.synchronize()
+                    nccl_setup_s = time.time() - t0
+                step = FU.make_fused_step(
+                    model, opt, size=SIZE, visits=FUSED_VISITS,
+                    batch_size=FUSED_BATCH, moves_per_chunk=FUSED_MOVES,
+                    mesh=mesh)
+                games = FU.new_games(SIZE, FUSED_GAMES, device=dev,
+                                     mesh=mesh)
+                ring = FU.ReplayRing.create(cap, SIZE, dev, mesh)
+                gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+                _reset_kernel_counts()
+                torch.cuda.synchronize()
+                t0 = time.time()
+                games, metrics = step(games, ring, gen)
+                torch.cuda.synchronize()
+                secs = time.time() - t0
+                launches = _kernel_counts()
+            finally:
+                if mesh is not None:
+                    PM.shutdown()
+            _need_launches(launches, f"phase 22's {name} fused step")
+            runs[name] = {
+                "ring": ring, "stones": games.pos.board.stones,
+                "loss": float(metrics["loss"]), "seconds": secs,
+                "launches": launches,
+                "params": {k: v.detach().clone()
+                           for k, v in model.state_dict().items()}}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, mesh = runs["plain"], runs["mesh"]
+    for k in FU.RING_FIELDS:
+        if not torch.equal(plain["ring"].rows(k), mesh["ring"].rows(k)):
+            raise AssertionError(f"phase 22: ring {k} differs")
+    if int(plain["ring"].cursor) != int(mesh["ring"].cursor) or \
+            int(plain["ring"].filled) != int(mesh["ring"].filled) or \
+            not torch.equal(plain["stones"], mesh["stones"]):
+        raise AssertionError("phase 22: cursor, filled or games differ")
+    loss_rel = abs(mesh["loss"] - plain["loss"]) / abs(plain["loss"])
+    upd = max(float((plain["params"][k].float() - init[k].float()).abs()
+                    .max()) for k in init)
+    upd_err = max(float((mesh["params"][k].float() -
+                         plain["params"][k].float()).abs().max())
+                  for k in init) / upd
+    if not (loss_rel <= FUSED22_LOSS_RTOL and upd_err <= FUSED22_UPDATE_REL
+            and math.isfinite(plain["loss"])):
+        raise AssertionError(f"phase 22: mesh vs plain loss {loss_rel:.2e}, "
+                             f"updates {upd_err:.2e}")
+    filled = int(mesh["ring"].filled)
+    out = {"fused22_filled": filled, "fused22_loss_rel": loss_rel,
+           "fused22_update_rel": upd_err,
+           "fused22_nccl_setup_s": nccl_setup_s}
+    for name, r in runs.items():
+        env = FUSED_GAMES * FUSED_MOVES / r["seconds"]
+        out[f"fused22_{name}"] = {
+            "seconds": r["seconds"], "env_steps_per_s": env,
+            "playouts_per_s": env * FUSED_VISITS, "launches": r["launches"],
+            "loss": r["loss"]}
+        log(f"phase 22 fused {name}: {FUSED_GAMES} games, {MODEL} bf16, "
+            f"{FUSED_MOVES} moves at {FUSED_VISITS} visits, batch "
+            f"{FUSED_BATCH}: {r['seconds']:.2f} s, {env:.2f} env-steps/s, "
+            f"launches {r['launches']}")
+    log(f"phase 22 fused: mesh at world size 1 (NCCL, its first "
+        f"collective {nccl_setup_s:.2f} s before the step) vs plain, ring "
+        f"({filled} rows), cursor and games equal, loss within "
+        f"{loss_rel:.2e} (limit {FUSED22_LOSS_RTOL}), parameters within "
+        f"{upd_err:.2e} of the largest update (limit {FUSED22_UPDATE_REL})")
+    del runs, model, init
+    torch.cuda.empty_cache()
+    return out
+
+
+def _jax_import_on_card(dev, work: Path) -> dict:
+    """Phase 22's import of a JAX trainer's checkpoint: the SGD run of
+    tests/data/torch_ref/jax_ckpt.npz (its tools/jax_checkpoint_to_npz.py
+    arrays and metadata, and the shards it trained on) through
+    checkpoint_tools_cmd import-jax, then one train_cmd step on the card
+    (float32, TF32 off): parameters within JAX_IMPORT_ATOL of the JAX
+    step's, the loss within JAX_IMPORT_ATOL relative."""
+    import numpy as np
+
+    from katago_torch.cli import checkpoint_tools_cmd as CT
+    from katago_torch.cli import train_cmd as TCMD
+    from katago_torch.models import weights as W
+    from katago_torch.train import checkpoint as CK
+
+    with np.load(REF_DIR / "jax_ckpt.npz") as z:
+        ref = {k: z[k] for k in z.files}
+    meta = json.loads(str(ref.pop("meta")))
+    run, tr = meta["runs"]["sgd"], meta["run_training"]
+    d = work / "p22_jax"
+    data = d / "data"
+    data.mkdir(parents=True)
+    for i in range(len(meta["shards"])):
+        pre = f"shard{i:03d}/"
+        np.savez_compressed(data / f"shard{i:03d}.npz", **{
+            k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)})
+    npz = d / "sgd.npz"
+    np.savez(npz, **{k[len("sgd/npz/"):]: v for k, v in ref.items()
+                     if k.startswith("sgd/npz/")})
+    (d / "sgd.npz.json").write_text(json.dumps(run["metadata"]))
+    ckpt = d / "ckpt"
+    t0 = time.time()
+    _stdout_of(CT.main, ["import-jax", "-npz", str(npz), "-ckpt-dir",
+                         str(ckpt), "-config", tr["config_name"], "-size",
+                         str(tr["size"]), "-optimizer", "sgd", "-data-dir",
+                         str(data)])
+    import_s = time.time() - t0
+    t0 = time.time()
+    printed = _stdout_of(TCMD.main, [
+        "-data-dir", str(data), "-ckpt-dir", str(ckpt), "-size",
+        str(tr["size"]), "-config", tr["config_name"], "-batch-size",
+        str(tr["batch_size"]), "-steps", "1", "-lr", str(tr["lr"]),
+        "-device", str(dev)])
+    resume_s = time.time() - t0
+    latest = CK.latest_checkpoint(str(ckpt))
+    if CK.load_metadata(latest)["global_step"] != run["next_global_step"]:
+        raise AssertionError(f"phase 22 import: resumed to {latest}")
+    got = W.to_flax_params(CK.load_state_tree(latest)["params"])
+    err = 0.0
+    for key, want in ref.items():
+        if not key.startswith("sgd/next/params/"):
+            continue
+        node = got
+        for name in key.split("/")[3:]:
+            node = node[name]
+        err = max(err, float(np.abs(node - want).max()))
+    loss = json.loads(printed.splitlines()[-1])["final_loss"]
+    loss_rel = abs(loss - run["next_metrics"]["loss"]) / \
+        abs(run["next_metrics"]["loss"])
+    if not (err <= JAX_IMPORT_ATOL and loss_rel <= JAX_IMPORT_ATOL):
+        raise AssertionError(f"phase 22 import: parameters within {err:.2e},"
+                             f" loss within {loss_rel:.2e} of JAX's step")
+    log(f"phase 22 import: a JAX orbax checkpoint ({tr['config_name']} at "
+        f"{tr['size']}x{tr['size']}, SGD, step {run['metadata']['global_step']}"
+        f") imported in {import_s:.2f} s, one train_cmd step on the card in "
+        f"{resume_s:.2f} s: parameters within {err:.2e}, loss within "
+        f"{loss_rel:.2e} of the JAX step (limit {JAX_IMPORT_ATOL})")
+    return {"import_s": import_s, "import_resume_s": resume_s,
+            "import_param_err": err, "import_loss_rel": loss_rel}
+
+
+def _host_libraries(work: Path) -> dict:
+    """Phase 22's C++ host libraries (built in phase 1): the scanner on
+    every record of phase 17 (its .sgf files and phase 6's .sgfs) equal to
+    the parser, summarize_sgfs through each equal, the time per game of
+    each; the 7 symmetries of phase 7's batch (TRAIN_BATCH rows of phase
+    6's shard: planes and policy rows) equal to numpy, ms per call of
+    each."""
+    import numpy as np
+
+    from katago_torch.cli import summarize_sgfs_cmd as SUM
+    from katago_torch.dataio import native as NV
+    from katago_torch.dataio import sgfscan as SC
+    from katago_torch.dataio import trainingwrite as TW
+
+    files = sorted((work / "sgf17").glob("*.sgf")) + \
+        sorted(work.glob("tdata_*.sgfs"))
+    records = [ln.strip() for f in files for ln in f.read_text().split("\n")
+               if ln.strip()]
+    for r in records:
+        if SC.scan_sgf(r) != SC.scan_sgf_plain(r):
+            raise AssertionError(f"phase 22: the scanner differs on {r!r}")
+    per_game = {}
+    for name, fn in (("scanner", SC.scan_sgf), ("parser", SC.scan_sgf_plain)):
+        t0 = time.perf_counter()
+        for _ in range(SCAN_REPEATS):
+            for r in records:
+                fn(r)
+        per_game[name] = (time.perf_counter() - t0) / SCAN_REPEATS / \
+            len(records) * 1e3
+    summary = _stdout_of(SUM.main, [str(work / "sgf17")])
+    SUM.scan_sgf = SC.scan_sgf_plain
+    try:
+        plain_summary = _stdout_of(SUM.main, [str(work / "sgf17")])
+    finally:
+        SUM.scan_sgf = SC.scan_sgf
+    if summary != plain_summary:
+        raise AssertionError("phase 22: summarize_sgfs differs")
+
+    shard = next((work / "tdata").glob("*.npz"))
+    with np.load(shard) as z:
+        rows = TW.decode_rows({k: z[k][:TRAIN_BATCH] for k in z.files},
+                              SIZE)
+    planes = np.ascontiguousarray(rows["binaryInputNCHW"])
+    policy = np.ascontiguousarray(
+        rows["policyTargetsNCMove"].reshape(-1, SIZE * SIZE + 1))
+    cases = {"planes": (planes, NV.apply_symmetry_planes,
+                        NV.apply_symmetry_planes_plain, ()),
+             "policy": (policy, NV.apply_symmetry_policy,
+                        NV.apply_symmetry_policy_plain, (SIZE,))}
+    sym_ms = {}
+    for name, (x, lib, plain, extra) in cases.items():
+        for sym in range(1, 8):
+            if not np.array_equal(lib(x, *extra, sym), plain(x, *extra, sym)):
+                raise AssertionError(f"phase 22: {name} symmetry {sym}")
+        for tag, fn in (("library", lib), ("numpy", plain)):
+            t0 = time.perf_counter()
+            for _ in range(SYM_REPEATS):
+                for sym in range(1, 8):
+                    fn(x, *extra, sym)
+            sym_ms[f"{name}_{tag}"] = (time.perf_counter() - t0) / \
+                SYM_REPEATS / 7 * 1e3
+    log(f"phase 22 host: the scanner equals the parser on {len(records)} "
+        f"records (summarize_sgfs too): {per_game['scanner']:.4f} vs "
+        f"{per_game['parser']:.4f} ms per game; symmetries of "
+        f"{planes.shape} planes and {policy.shape} policy rows equal numpy, "
+        f"ms per call {json.dumps({k: round(v, 4) for k, v in sym_ms.items()})}")
+    return {"scan_records": len(records), "scan_ms_per_game": per_game,
+            "symmetry_ms": sym_ms}
+
+
+def run_slice9_phase(dev, work: Path) -> dict:
+    """Phase 22: the fused step across ranks against the plain step, the
+    JAX checkpoint import resumed on the card, and the C++ host
+    libraries against their plain versions."""
+    out = _fused_mesh_vs_plain(dev)
+    out.update(_jax_import_on_card(dev, work))
+    out.update(_host_libraries(work))
+    log("phase 22 json " + json.dumps(out))
+    return out
+
+
 def run_m12_phases(train: dict, dev, work: Path, which=None) -> dict:
-    """Phases 17-21 (or the ones named in which), each timed; returns
+    """Phases 17-22 (or the ones named in which), each timed; returns
     their results by number."""
     phases = {"17": lambda: run_sgftools_phase(train, dev, work),
               "18": lambda: run_genposes_phase(train, dev, work),
               "19": lambda: run_book_phase(train, dev, work),
               "20": lambda: run_contribute_phase(train, dev, work),
-              "21": lambda: run_parallel_phase(dev, work)}
+              "21": lambda: run_parallel_phase(dev, work),
+              "22": lambda: run_slice9_phase(dev, work)}
     out = {}
     for name, run in phases.items():
         if which is not None and name not in which:
@@ -2467,7 +2740,9 @@ def _m12_launches(m12: dict, kernel: str) -> dict:
         "launches_contribute_per_task": m12["20"]["launches"][kernel],
         "launches_mesh_play_games": m12["21"]["mesh_launches"][kernel],
         "launches_fused_per_step":
-            m12["21"]["fused_launches_per_step"][kernel]}
+            m12["21"]["fused_launches_per_step"][kernel],
+        "launches_fused_mesh_step":
+            m12["22"]["fused22_mesh"]["launches"][kernel]}
 
 
 def main() -> int:
@@ -2483,7 +2758,6 @@ def main() -> int:
     from katago_torch.models import config as MC
     from katago_torch.models import model as M
     from katago_torch.models import weights as W
-    from katago_torch.ops import _build
     from katago_torch.ops import cases as CASES
     from katago_torch.ops import chase as K1
     from katago_torch.ops import labels as K2
@@ -2507,8 +2781,9 @@ def main() -> int:
     old = {}
 
     # ---- 1. build ----
-    t = _build.build_all()
-    log(f"phase build: both kernels built in {t:.1f} s")
+    t, t_host = build_everything()
+    log(f"phase build: both kernels built in {t:.1f} s, both host "
+        f"libraries in {t_host:.1f} s (in parallel)")
     if opts.baseline is not None:
         old, t = build_baseline(opts.baseline)
         log(f"phase build: old kernels from {opts.baseline} built in "
@@ -2714,11 +2989,12 @@ def main() -> int:
         tools = run_tools_phase(train, dev, work)
         torch.cuda.empty_cache()
 
-        # ---- 17-21. the SGF tools, genposes and genboard, the book,
-        # contribute, data parallelism and the fused actor-learner ----
+        # ---- 17-22. the SGF tools, genposes and genboard, the book,
+        # contribute, data parallelism and the fused actor-learner, the
+        # fused step across ranks, the JAX import, the host libraries ----
         m12 = run_m12_phases(train, dev, work)
 
-    # ---- 22. report ----
+    # ---- 23. report ----
     log(f"playouts_per_s {GAMES * VISITS / dt1:.1f} (search 1), "
         f"{sp_out['playouts_per_s']:.1f} (selfplay, {SP_VISITS} visits, "
         f"tree reuse), {1e3 / gtp_out['playout_ms']:.1f} (one GTP game), "

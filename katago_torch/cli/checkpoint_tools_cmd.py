@@ -1,8 +1,9 @@
-"""Checkpoint utilities — clean / show / edit / migrate
+"""Checkpoint utilities — clean / show / edit / migrate / import-jax
 (python/clean_checkpoint.py, edit_checkpoint.py, migrate_*.py); port of
 katago_tpu/cli/checkpoint_tools_cmd.py on the port's own checkpoint
 format (train/checkpoint.py: a state.pt of torch.save'd dicts beside
-train_metadata.json). A JAX orbax checkpoint cannot be read here.
+train_metadata.json). A JAX orbax checkpoint is read only through the
+npz that tools/jax_checkpoint_to_npz.py writes beside the JAX package.
 
   clean    strip a full TrainState checkpoint down to a params-only
            export for release (reference clean_checkpoint.py: drop
@@ -15,6 +16,13 @@ train_metadata.json). A JAX orbax checkpoint cannot be read here.
            (the migrate_*.py family): fills fields the old format
            lacked (swa_params := ema_params, a fresh seki_ema) and
            rewrites it
+  import-jax  a JAX trainer's checkpoint, flattened by
+           tools/jax_checkpoint_to_npz.py (F and its metadata F.json),
+           as the port's checkpoint
+           D/step_N/{state.pt,train_metadata.json} (N its global_step;
+           the metadata, data_serve_state included, carried over, its
+           data paths moved to -data-dir when given), from which
+           train_cmd -ckpt-dir D resumes
 
 Usage:
   python -m katago_torch.cli.checkpoint_tools_cmd clean -ckpt C -out DIR
@@ -23,6 +31,8 @@ Usage:
   python -m katago_torch.cli.checkpoint_tools_cmd edit -ckpt C -set k=v ...
   python -m katago_torch.cli.checkpoint_tools_cmd migrate -ckpt C
       [-config b2c16] [-size 19]
+  python -m katago_torch.cli.checkpoint_tools_cmd import-jax -npz F
+      -ckpt-dir D -config C -size S -optimizer K [-data-dir DIR]
 
 The tools move tensors between files only, on the host.
 """
@@ -33,6 +43,7 @@ import argparse
 import json
 import os
 
+import numpy as np
 import torch
 
 from katago_torch.train import checkpoint as C
@@ -48,11 +59,13 @@ def _param_count(tree) -> int:
 
 
 def _template_params(config_name: str, size: int) -> tuple[dict, object]:
-    """(the named net's state_dict on the CPU, its ModelConfig)."""
+    """(the named net's parameters on the CPU, as the trainer's
+    checkpoints hold them, and its ModelConfig)."""
     from katago_torch.models import config as MC
     from katago_torch.models import model as M
     cfg = MC.get_config(config_name)
-    return M.KataGoModel(cfg, size, torch.float32).state_dict(), cfg
+    model = M.KataGoModel(cfg, size, torch.float32)
+    return {k: v.detach() for k, v in model.named_parameters()}, cfg
 
 
 def cmd_show(args):
@@ -131,6 +144,47 @@ def cmd_migrate(args):
     print(json.dumps({"migrated": changed, "rewritten": path}))
 
 
+def _rebase_serve_state(meta: dict, data_dir: str) -> dict:
+    """meta with the paths of its data_serve_state moved from the JAX
+    run's data directory (the newest of old_train_data_dirs) to
+    data_dir: a run resumed on another machine serves the same files in
+    the same order."""
+    serve = meta.get("data_serve_state")
+    if not serve or not serve.get("old_train_data_dirs"):
+        return meta
+    old = serve["old_train_data_dirs"][-1]
+
+    def move(path):
+        if path == old:
+            return data_dir
+        if path.startswith(old.rstrip("/") + "/"):
+            return os.path.join(data_dir, path[len(old.rstrip("/")) + 1:])
+        return path
+    return dict(meta, data_serve_state={
+        k: [move(p) for p in v] if isinstance(v, list) else v
+        for k, v in serve.items()})
+
+
+def cmd_import_jax(args):
+    from katago_torch.train.train_step import (init_train_state,
+                                               make_optimizer)
+    template, _ = _template_params(args.config, args.size)
+    state_template = init_train_state(template, make_optimizer(
+        kind=args.optimizer))
+    with np.load(args.npz) as z:
+        arrays = {k: z[k] for k in z.files}
+    state = C.import_jax_state(arrays, state_template)
+    with open(args.npz + ".json") as f:
+        meta = json.load(f)
+    if args.data_dir:
+        meta = _rebase_serve_state(meta, os.path.abspath(args.data_dir))
+    step = int(meta.get("global_step", state.step))
+    path = C.save_checkpoint(args.ckpt_dir, state, step, metadata=meta)
+    print(json.dumps({"imported": args.npz, "checkpoint": path,
+                      "step": state.step, "global_step": step,
+                      "params": _param_count(state.params)}))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="command", required=True)
@@ -155,6 +209,16 @@ def main(argv=None):
     p.add_argument("-config", default="b2c16")
     p.add_argument("-size", type=int, default=19)
     p.set_defaults(fn=cmd_migrate)
+    p = sub.add_parser("import-jax")
+    p.add_argument("-npz", required=True)
+    p.add_argument("-ckpt-dir", required=True)
+    p.add_argument("-config", required=True)
+    p.add_argument("-size", type=int, default=19)
+    p.add_argument("-optimizer", default="sgd",
+                   choices=["sgd", "muon", "normuon", "polar"])
+    p.add_argument("-data-dir", default=None,
+                   help="move the served data paths to this directory")
+    p.set_defaults(fn=cmd_import_jax)
     args = ap.parse_args(argv)
     args.fn(args)
 

@@ -9,7 +9,10 @@ DDP, train.py:252-319): NCCL between cards, gloo on the CPU. A `Mesh`
 names this process's rank, the world size and its device; each rank
 takes its slice of a global batch (`process_batch_slice`), parameters
 are replicated (broadcast from rank 0), and gradients are summed over
-the ranks with one all-reduce of a flat buffer (`all_reduce_sum`).
+the ranks with one all-reduce of a flat buffer (`all_reduce_sum`). The
+fused actor-learner also gathers every rank's rows (`all_gather`) and
+takes rank 0's draws (`broadcast`); each rank but 0 draws from a
+generator of its own (`rank_generator`).
 
 Nothing here reads a cluster's environment: the caller gives the
 process group its address (tcp://host:port), world size and rank
@@ -22,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 import socket
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -108,6 +112,58 @@ def all_reduce_sum(tensors: list, mesh: Mesh | None) -> list:
         out.append(flat[i:i + t.numel()].reshape(t.shape).to(t.dtype))
         i += t.numel()
     return out
+
+
+def all_gather(tensors: list, mesh: Mesh | None) -> list:
+    """Each tensor's pieces from every rank, concatenated along dim 0 in
+    rank order, on every rank (one all-gather per dtype of their flat
+    concatenation; every rank passes the same shapes). Without a mesh or
+    at world size 1: the tensors themselves, with no collective."""
+    if mesh is None or mesh.world_size == 1 or not tensors:
+        return list(tensors)
+    out = [None] * len(tensors)
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    for dtype, idx in groups.items():
+        # bool travels as bytes (gloo has no bool all-gather)
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        if dtype == torch.bool:
+            flat = flat.view(torch.uint8)
+        parts = [torch.empty_like(flat) for _ in range(mesh.world_size)]
+        dist.all_gather(parts, flat)
+        off = 0
+        for i in idx:
+            t = tensors[i]
+            piece = torch.cat([p[off:off + t.numel()].reshape(t.shape)
+                               for p in parts])
+            out[i] = piece.view(torch.bool) if dtype == torch.bool else piece
+            off += t.numel()
+    return out
+
+
+def broadcast(tensor: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Rank 0's value of tensor on every rank (a new tensor; every rank
+    passes one of the same shape and dtype). Without a mesh or at world
+    size 1: the tensor itself, with no collective."""
+    if mesh is None or mesh.world_size == 1:
+        return tensor
+    out = tensor.contiguous().clone()
+    dist.broadcast(out, src=0)
+    return out
+
+
+def rank_generator(gen: torch.Generator, seed: int,
+                   mesh: Mesh | None) -> torch.Generator:
+    """The generator this rank draws its own stream from: gen on rank 0
+    (and without a mesh), on every other rank a new generator on gen's
+    device seeded from (seed, rank), so ranks do not repeat each other's
+    draws."""
+    if mesh is None or mesh.rank == 0:
+        return gen
+    return torch.Generator(device=gen.device).manual_seed(int(
+        np.random.SeedSequence((seed, mesh.rank))
+        .generate_state(1, np.uint64)[0]))
 
 
 def replicate(tensors: dict, mesh: Mesh | None) -> dict:

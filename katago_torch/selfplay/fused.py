@@ -1,4 +1,4 @@
-"""Fused actor-learner on one device — port of
+"""Fused actor-learner on one device or across ranks — port of
 katago_tpu/selfplay/fused.py.
 
 The reference splits selfplay and training into separate processes
@@ -30,7 +30,27 @@ full-fidelity path.
 Random draws come from a torch.Generator (search, move choice, the
 learner's row indices, the komi jitter); `learner_step` and `new_games`
 also take explicit draws, which the tests use to hold the port to the
-JAX package's.
+JAX package's. A fused step splits its generator first, as the JAX step
+splits its key: one generator for the actor's chunk, one for the
+learner, each seeded from a draw of gen.
+
+Across ranks (`mesh`, parallel/mesh.py over torch.distributed) the
+result is the one-rank result, as the JAX step sharded over a device
+mesh computes its unsharded result: each rank plays its slice of the
+game axis, and the ring is replicated. Each move every rank gathers
+all ranks' live masks and rows (one all-gather) and writes them with
+the one global compaction from the one cursor, so `cursor`, `filled`
+and every row are the same on every rank. The learner draws its global
+row indices on rank 0 (broadcast), each rank takes its contiguous slice
+of the batch and the mean loss over it, the gradients are summed with
+one all-reduce and divided by the ranks, and every rank steps its own
+optimizer, so the replicated parameters stay equal; the metrics are the
+ranks' mean. The actor's draws follow play_games(mesh=...): rank 0 draws
+from gen, every other rank from a generator seeded from gen's first draw
+and its rank, so at temperature 0 with no root noise W ranks give the
+one-rank games. A replicated ring costs every rank the whole ring (34.8
+KB a row at 19x19) and one all-gather of the move's rows; it keeps the
+writes and the learner's gather local and the compaction exact.
 """
 
 from __future__ import annotations
@@ -46,6 +66,7 @@ from katago_torch.device import resolve_device
 from katago_torch.game import history as H
 from katago_torch.game import rules as R
 from katago_torch.models import features as F
+from katago_torch.parallel import mesh as PM
 from katago_torch.search import mcts
 from katago_torch.search.params import SearchParams
 
@@ -78,8 +99,11 @@ class ReplayRing:
         return getattr(self, name)[:-1]
 
     @staticmethod
-    def create(capacity: int, size: int, device=None) -> "ReplayRing":
-        dev = resolve_device(device)
+    def create(capacity: int, size: int, device=None,
+               mesh=None) -> "ReplayRing":
+        """An empty ring; with a mesh, this rank's replica on its
+        device."""
+        dev = mesh.device if mesh is not None else resolve_device(device)
         nn = size * size
         c = capacity + 1
 
@@ -111,10 +135,11 @@ class ReplayRing:
 def make_actor_chunk(model, *, size: int, visits: int,
                      max_nodes: int | None = None,
                      search_params: SearchParams | None = None,
-                     moves_per_chunk: int = 8) -> Callable:
+                     moves_per_chunk: int = 8, mesh=None) -> Callable:
     """Build actor_chunk(games, replay, gen) -> games (the ring is
     written in place). model: the net the learner trains, on the
-    games' device.
+    games' device. mesh: games is this rank's slice of the game axis
+    and replay its replica of the ring (module docstring).
 
     Finished games restart from the empty position with their own rules
     row (komi kept), so the actor runs forever without host
@@ -147,12 +172,15 @@ def make_actor_chunk(model, *, size: int, visits: int,
                             dim=1)
         # mover-perspective regression targets (the net's heads predict
         # from the mover's view; root_* results are white-persp)
-        replay.write(~games.pos.game_over, {
-            "spatial": sp_feat, "glob": gl_feat, "policy": pol_t,
-            "value": val_t, "score": flip * res.root_score_mean.float(),
-            "lead": flip * res.root_lead.float(),
-            "score_stdev": res.root_score_stdev.float(),
-            "ownership": flip[:, None] * res.root_ownership.float()})
+        rows = {"spatial": sp_feat, "glob": gl_feat, "policy": pol_t,
+                "value": val_t, "score": flip * res.root_score_mean.float(),
+                "lead": flip * res.root_lead.float(),
+                "score_stdev": res.root_score_stdev.float(),
+                "ownership": flip[:, None] * res.root_ownership.float()}
+        # every rank's live games and rows, in game order
+        live, *vals = PM.all_gather(
+            [~games.pos.game_over] + [rows[k] for k in RING_FIELDS], mesh)
+        replay.write(live, dict(zip(RING_FIELDS, vals)))
 
         games, _ = H.step(games, moves, size)
         # restart finished games from the empty position, each with its
@@ -164,6 +192,11 @@ def make_actor_chunk(model, *, size: int, visits: int,
     @torch.no_grad()
     def actor_chunk(games: H.GameState, replay: ReplayRing,
                     gen: torch.Generator) -> H.GameState:
+        if mesh is not None and mesh.world_size > 1:
+            # every rank draws the seed; each rank but 0 plays from its own
+            seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen,
+                                     device=gen.device))
+            gen = PM.rank_generator(gen, seed, mesh)
         for _ in range(moves_per_chunk):
             games = one_move(games, replay, gen)
         return games
@@ -206,43 +239,80 @@ def learner_loss(model, batch: dict, size: int) -> dict:
 
 
 def make_learner_step(model, optimizer, batch_size: int,
-                      size: int) -> Callable:
+                      size: int, mesh=None) -> Callable:
     """learner_step(replay, gen, idx=None) -> metrics: one optimizer
     step (a torch.optim optimizer over model's parameters) on a batch
     drawn uniformly from the filled part of the ring — or on the rows
     idx (int64[batch_size]) when given. Metrics are 0-dim tensors on the
-    device, taken before the update."""
+    device, taken before the update.
+
+    mesh: idx is global (drawn on rank 0 and broadcast when not given),
+    each rank computes the loss of its contiguous batch_size / ranks
+    rows, and the gradients and metrics are the ranks' mean (module
+    docstring); batch_size must divide by the ranks."""
+    PM.check_divisible(batch_size, mesh, "learner batch")
+    row0, rows = PM.process_batch_slice(batch_size, mesh)
+    ranks = 1 if mesh is None else mesh.world_size
 
     def learner_step(replay: ReplayRing, gen: torch.Generator | None,
                      idx: torch.Tensor | None = None) -> dict:
         if idx is None:
             hi = torch.clamp(replay.filled, min=1)
-            u = torch.rand((batch_size,), generator=gen,
-                           device=replay.filled.device)
-            idx = torch.minimum((u * hi).long(), hi - 1)
+            if mesh is None or mesh.rank == 0:
+                u = torch.rand((batch_size,), generator=gen,
+                               device=replay.filled.device)
+                idx = torch.minimum((u * hi).long(), hi - 1)
+            else:
+                idx = torch.zeros((batch_size,), dtype=torch.int64,
+                                  device=replay.filled.device)
+            idx = PM.broadcast(idx, mesh)
+        idx = idx[row0:row0 + rows]
         batch = {k: getattr(replay, k)[idx] for k in RING_FIELDS}
         metrics = learner_loss(model, batch, size)
         optimizer.zero_grad(set_to_none=True)
         metrics["loss"].backward()
+        names = list(metrics)
+        stacked = torch.stack([metrics[k].detach() for k in names])
+        if mesh is not None:
+            params = [p for p in model.parameters() if p.grad is not None]
+            *grads, stacked = PM.all_reduce_sum(
+                [p.grad for p in params] + [stacked], mesh)
+            for p, g in zip(params, grads):
+                p.grad.copy_(g / ranks)
+            stacked = stacked / ranks
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return dict(zip(names, stacked))
 
     return learner_step
 
 
+def split_generator(gen: torch.Generator, n: int = 2) -> list:
+    """n new generators on gen's device, each seeded from one draw of
+    gen (one host sync): the torch counterpart of jax.random.split."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=gen,
+                          device=gen.device).tolist()
+    return [torch.Generator(device=gen.device).manual_seed(s)
+            for s in seeds]
+
+
 def make_fused_step(model, optimizer, *, size: int, visits: int,
                     batch_size: int, moves_per_chunk: int = 4,
-                    search_params: SearchParams | None = None) -> Callable:
+                    search_params: SearchParams | None = None,
+                    mesh=None) -> Callable:
     """fused_step(games, replay, gen) -> (games, metrics): an actor
-    chunk, then one learner update from the ring."""
+    chunk, then one learner update from the ring, on generators split
+    from gen (so gen advances by the same draws on every rank and at
+    every world size). mesh: games is this rank's slice and replay its
+    replica (module docstring)."""
     actor = make_actor_chunk(model, size=size, visits=visits,
                              search_params=search_params,
-                             moves_per_chunk=moves_per_chunk)
-    learner = make_learner_step(model, optimizer, batch_size, size)
+                             moves_per_chunk=moves_per_chunk, mesh=mesh)
+    learner = make_learner_step(model, optimizer, batch_size, size, mesh)
 
     def fused_step(games, replay, gen):
-        games = actor(games, replay, gen)
-        return games, learner(replay, gen)
+        g_actor, g_learn = split_generator(gen)
+        games = actor(games, replay, g_actor)
+        return games, learner(replay, g_learn)
 
     return fused_step
 
@@ -250,14 +320,23 @@ def make_fused_step(model, optimizer, *, size: int, visits: int,
 def new_games(size: int, num_games: int, rules: R.Rules | None = None,
               max_moves: int | None = None, komi_stdev: float = 0.0,
               gen: torch.Generator | None = None, device=None,
-              normals: torch.Tensor | None = None) -> H.GameState:
+              normals: torch.Tensor | None = None,
+              mesh=None) -> H.GameState:
     """[G]-batch of fresh games for the actor stream.
 
     komi_stdev > 0 draws each game's komi from a rounded normal around
     the base komi — the fused-path slice of gameinit's komi
     randomization (komiStdev, play.cpp); restarts inside actor_chunk
     keep each game's komi. The standard normals come from gen, or are
-    `normals` (float[G]) when given."""
+    `normals` (float[G]) when given. mesh: this rank's slice of the G
+    games (G must divide by the ranks; the draws are the whole
+    batch's), on its device."""
+    if mesh is not None:
+        PM.check_divisible(num_games, mesh, "num_games")
+        games = new_games(size, num_games, rules, max_moves, komi_stdev,
+                          gen, mesh.device, normals)
+        row0, rows = PM.process_batch_slice(num_games, mesh)
+        return T.tree_map(lambda x: x[row0:row0 + rows], games)
     dev = resolve_device(device)
     rules = rules or R.Rules.tromp_taylorish()
     nn = size * size

@@ -436,11 +436,8 @@ def play_games(model: torch.nn.Module, *, size: int, num_games: int,
         komi_white, init_len = komi_white[mine], init_len[mine]
         if early_fork is not None:
             early_fork = early_fork[mine]
-        if mesh.rank > 0:
-            # this rank's own stream of device draws
-            gen = torch.Generator(device=dev).manual_seed(int(
-                np.random.SeedSequence((host_seed, mesh.rank))
-                .generate_state(1, np.uint64)[0]))
+        # this rank's own stream of device draws
+        gen = PM.rank_generator(gen, host_seed, mesh)
 
     rows = []  # host-side per-move records
     total_playouts = 0

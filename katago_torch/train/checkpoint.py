@@ -14,6 +14,11 @@ gatekeeper polling semantics carry over:
   export_dir/<name>.bin.gz                      reference engine format
 A state.pt holds plain dicts of CPU tensors and ints, so it loads with
 torch.load(weights_only=True) on any device.
+
+A JAX trainer's orbax checkpoint cannot be read here (orbax is the JAX
+package's). tools/jax_checkpoint_to_npz.py, run beside the JAX package,
+flattens one into an npz keyed by jax.tree_util.keystr paths;
+`import_jax_state` maps that onto the port's TrainState.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import os
 import shutil
 import time
 
+import numpy as np
 import torch
 
 from katago_torch.train.losses import SekiEma
@@ -198,3 +204,116 @@ def load_params(path: str, template: dict | None = None) -> dict:
         return params
     check_keys("params", template, params)
     return _to_device(params, next(iter(template.values())).device)
+
+
+# optax's state paths in the JAX TrainState of train_cmd (an lr schedule):
+# chain(clip_by_global_norm, add_decayed_weights, sgd) and
+# chain(clip_by_global_norm, muon) with muon = partition(muon, adam)
+_SGD = ".opt_state[2]"
+_MUON = ".opt_state[1].inner_states['muon'].inner_state"
+_ADAM = ".opt_state[1].inner_states['adam'].inner_state"
+
+
+def _flax_paths(prefix: str, state_dict: dict) -> dict:
+    """{keystr path of the Flax leaf: (state_dict key, Flax shape)} for
+    the tensors of state_dict under prefix (a TrainState field)."""
+    from katago_torch.models.weights import to_flax_params
+    out = {}
+
+    def walk(tree, path, names):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + f"['{k}']", names + [k])
+            else:
+                out[f"{prefix}['params']{path}['{k}']"] = (
+                    ".".join(names + [k]), tuple(v.shape))
+    walk(to_flax_params(state_dict), "", [])
+    return out
+
+
+def _jax_layout(template: TrainState) -> tuple[dict, list]:
+    """The JAX TrainState's leaves for template's net and optimizer:
+    ({keystr path: (port field, state_dict key, Flax shape)}, the
+    scalar paths)."""
+    leaves = {}
+    for field in ("params", "ema_params", "swa_params"):
+        for path, (key, shape) in _flax_paths(
+                f".{field}", template.params).items():
+            leaves[path] = (field, key, shape)
+    opt = template.opt_state
+    if "trace" in opt:
+        parts = {"trace": f"{_SGD}[0].trace"}
+        counts = [f"{_SGD}[1].count"]
+    else:
+        parts = {"momentum": f"{_MUON}[0].momentum",
+                 "normuon_v": f"{_MUON}[0].normuon_v",
+                 "mu": f"{_ADAM}[0].mu", "nu": f"{_ADAM}[0].nu"}
+        counts = [f"{_MUON}[2].count", f"{_ADAM}[0].count",
+                  f"{_ADAM}[2].count"]
+    for part, prefix in parts.items():
+        # normuon_v holds one entry per row of the Flax matrix: a vector,
+        # the same in both layouts
+        for path, (key, shape) in _flax_paths(prefix, opt[part]).items():
+            leaves[path] = (part, key, shape)
+    return leaves, counts + [".step", ".seki_ema.sum", ".seki_ema.weight"]
+
+
+def import_jax_state(npz, template: TrainState) -> TrainState:
+    """The port's TrainState of a JAX trainer's checkpoint flattened by
+    tools/jax_checkpoint_to_npz.py. npz: a mapping of keystr paths to
+    arrays (an np.load result or a dict). template: a TrainState of the
+    same net and optimizer kind (init_train_state(params,
+    make_optimizer(kind=...))), on the device the result goes to.
+
+    params, ema_params and swa_params go through
+    models/weights.py::from_flax_params. The optimizer state: for SGD,
+    optax's trace becomes the momentum buffer (clipping and decayed
+    weights carry no state) and the schedule's count the port's count;
+    for the Muon family, Muon's momentum and normuon_v, AdamW's mu and
+    nu, and the counts (which must agree). step and seki_ema carry over.
+    A path missing from npz, one it should not hold, or a leaf of the
+    wrong shape raises a ValueError that names it, before anything is
+    built."""
+    from katago_torch.models.weights import from_flax_params
+    leaves, scalars = _jax_layout(template)
+    got = set(npz.keys())
+    missing = sorted(set(leaves) - got) + sorted(set(scalars) - got)
+    extra = sorted(got - set(leaves) - set(scalars))
+    if missing or extra:
+        raise ValueError(f"JAX checkpoint tree differs from the "
+                         f"template's: missing {missing[:5]}, extra "
+                         f"{extra[:5]}")
+    for path, (_, _, shape) in leaves.items():
+        if tuple(np.shape(npz[path])) != shape:
+            raise ValueError(f"JAX checkpoint leaf {path} has shape "
+                             f"{tuple(np.shape(npz[path]))}, want {shape}")
+    for path in scalars:
+        if np.shape(npz[path]) != ():
+            raise ValueError(f"JAX checkpoint leaf {path} has shape "
+                             f"{np.shape(npz[path])}, want ()")
+    counts = {int(npz[p]) for p in scalars[:-3]}
+    if len(counts) != 1:
+        raise ValueError(f"JAX optimizer counts disagree: "
+                         f"{dict((p, int(npz[p])) for p in scalars[:-3])}")
+
+    trees: dict = {}
+    for path, (part, key, _) in leaves.items():
+        *names, leaf = key.split(".")
+        node = trees.setdefault(part, {})
+        for n in names:
+            node = node.setdefault(n, {})
+        node[leaf] = np.asarray(npz[path])
+    dev = next(iter(template.params.values())).device
+    parts = {part: _to_device(from_flax_params(tree), dev)
+             for part, tree in trees.items()}
+    opt = {"count": counts.pop()}
+    for part in template.opt_state:
+        if part != "count":
+            opt[part] = parts.get(part, {})
+    seki = [torch.tensor(float(np.asarray(npz[p])), dtype=torch.float32,
+                         device=dev) for p in scalars[-2:]]
+    return TrainState(params=parts["params"], opt_state=opt,
+                      ema_params=parts["ema_params"],
+                      swa_params=parts["swa_params"],
+                      step=int(npz[".step"]),
+                      seki_ema=SekiEma(sum=seki[0], weight=seki[1]))

@@ -1,5 +1,7 @@
 """Boundaries of the PyTorch port: katago_torch imports no JAX, no Flax,
-no optax or orbax and nothing of katago_tpu; its entry points refuse to fall back to the CPU;
+no optax or orbax and nothing of katago_tpu; neither it nor chip_smoke.py
+imports the JAX-side checkpoint converter (tools/jax_checkpoint_to_npz.py);
+its entry points refuse to fall back to the CPU;
 kernel wrappers take the plain version only for CPU tensors; built kernel
 libraries are never tracked."""
 
@@ -37,6 +39,14 @@ def test_module_imports_no_jax_flax_or_katago_tpu(path):
     bad = [n for n in _imported_names(path)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _modules() + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_the_jax_checkpoint_converter(path):
+    names = list(_imported_names(path))
+    assert not [n for n in names if n.split(".")[0] == "tools"
+                or "jax_checkpoint_to_npz" in n], names
 
 
 def test_every_module_imports_with_jax_blocked():

@@ -96,6 +96,16 @@ Fixtures:
   ckpt_clean    checkpoint_tools_cmd clean -bin-gz of a JAX checkpoint
                 whose EMA is the seed-4 b1c6 weights: the printed JSON
                 and the gunzipped .bin.gz bytes
+  fused_mesh    the JAX fused step jitted with NamedShardings over a
+                2-device CPU mesh (games and ring sharded, parameters
+                replicated) on the `fused` arguments: the ring, the games
+                after the chunk, the learner's indices from the step's
+                key, its metrics and the parameters after it
+  jax_ckpt      2 steps of run_training (b1c6, 5x5) with SGD and with
+                normuon (Newton-Schulz in float32), saved by orbax,
+                flattened by tools/jax_checkpoint_to_npz.py (its npz and
+                metadata), and the JAX state and metrics after one more
+                step; the shards it trained on
 """
 
 from __future__ import annotations
@@ -113,6 +123,15 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "tests" / "data" / "torch_ref"
 sys.path.insert(0, str(ROOT))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+# fused_mesh runs the JAX step sharded over MESH_DEVICES CPU devices, every
+# other maker on one (a JAX trainer would go data-parallel over more). The
+# device count is fixed when JAX is imported, so fused_mesh is made in a
+# process of its own (main starts one), which sets it here.
+MESH_DEVICES = 2
+if sys.argv[1:] == ["--only", "fused_mesh"]:
+    os.environ["XLA_FLAGS"] = (
+        os.environ.get("XLA_FLAGS", "") +
+        f" --xla_force_host_platform_device_count={MESH_DEVICES}")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -1674,6 +1693,126 @@ def make_fused():
                 "jax.random.normal(PRNGKey(komi_seed), (games,))"})
 
 
+def make_fused_mesh():
+    """The fused step at the `fused` arguments, jitted with the games and
+    the ring sharded over a 2-device mesh and the parameters replicated,
+    on PRNGKey(5): the learner's indices are those its key's second half
+    draws."""
+    import optax
+    from jax.sharding import Mesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from katago_tpu.selfplay import fused as JFU
+    if len(jax.devices()) != MESH_DEVICES:
+        raise RuntimeError("make fused_mesh alone: --only fused_mesh")
+    a = C.FUSED_ARGS
+    size = SEARCH_SIZE
+    params = jax_params()
+    apply = jax_model(size).apply
+    games = JFU.new_games(size, a["games"], max_moves=a["max_moves"],
+                          komi_stdev=a["komi_stdev"],
+                          rng=jax.random.PRNGKey(a["komi_seed"]))
+    over = np.zeros(a["games"], bool)
+    over[list(a["over"])] = True
+    games = games._replace(pos=games.pos._replace(
+        game_over=jnp.asarray(over)))
+    replay = JFU.ReplayRing.create(a["capacity"], size)
+    opt = optax.sgd(a["lr"], momentum=0.9)
+    opt_state = opt.init(params)
+    mesh = Mesh(np.array(jax.devices()), ("data",))
+    shard, repl = NamedSharding(mesh, P("data")), NamedSharding(mesh, P())
+
+    def place(tree, n):
+        return jax.tree.map(lambda x: jax.device_put(
+            x, shard if x.ndim >= 1 and x.shape[0] == n else repl), tree)
+
+    games, replay = place(games, a["games"]), place(replay, a["capacity"])
+    params, opt_state = place(params, -1), place(opt_state, -1)
+    step = jax.jit(JFU.make_fused_step(
+        apply, opt, size=size, visits=a["visits"], batch_size=a["batch"],
+        moves_per_chunk=a["moves"],
+        search_params=dataclasses.replace(JParams.for_selfplay(),
+                                          root_noise_enabled=False,
+                                          **C.TEMPERATURE_ZERO)))
+    key = jax.random.PRNGKey(5)
+    new_params, _, games2, replay2, metrics = step(
+        params, opt_state, games, replay, jax.device_put(key, repl))
+    assert len(replay2.spatial.sharding.device_set) == 2
+    _, r_learn = jax.random.split(key)
+    idx = jax.random.randint(r_learn, (a["batch"],), 0,
+                             jnp.maximum(replay2.filled, 1),
+                             dtype=jnp.int32)
+    arrays = {f"ring/{k}": np.asarray(v)
+              for k, v in replay2._asdict().items()}
+    arrays.update({"final_stones": np.asarray(games2.pos.board.stones),
+                   "final_move_num": np.asarray(games2.pos.move_num),
+                   "final_komi": np.asarray(games2.rules.komi),
+                   "learner/idx": np.asarray(idx)})
+    arrays.update({f"learner/{k}": np.asarray(v)
+                   for k, v in metrics.items()})
+    arrays.update({"after/" + k[2:]: v
+                   for k, v in flat_params(new_params).items()})
+    save("fused_mesh", arrays, {
+        "args": a, "weights": f"weights_b1c6_s{WEIGHT_SEED}",
+        "devices": MESH_DEVICES, "sharding": "games and ring P('data'), params and "
+                                  "optimizer state P()",
+        "search_params": "for_selfplay, root noise off, TEMPERATURE_ZERO",
+        "key": "PRNGKey(5) into make_fused_step; learner indices from "
+               "randint(split(key)[1], (batch,), 0, max(filled, 1))",
+        "optimizer": "optax.sgd(lr, momentum=0.9)",
+        "komi": "new_games(komi_stdev, rng=PRNGKey(komi_seed)), the "
+                "fused fixture's normals"})
+
+
+JAX_CKPT_SHARDS = [24, 20]          # rows per shard at TRAIN_SIZE
+JAX_CKPT_STEPS = 2                  # steps before the checkpoint
+
+
+def make_jax_ckpt():
+    """run_training (TRAIN_RUN) for JAX_CKPT_STEPS steps with SGD and
+    with normuon (ns_float32), each checkpoint flattened by
+    tools/jax_checkpoint_to_npz.py; then one more JAX step from it."""
+    import contextlib
+
+    from tools import jax_checkpoint_to_npz as J2N
+    arrays = {}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        for i, path in enumerate(C.write_shards(
+                data, TRAIN_SIZE, JAX_CKPT_SHARDS, TRAIN_DATA_SEED)):
+            with np.load(path) as z:
+                arrays.update({f"shard{i:03d}/{k}": z[k] for k in z.files})
+        for kind, ctx in (("sgd", contextlib.nullcontext),
+                          ("normuon", ns_float32)):
+            ckpt = os.path.join(tmp, f"ckpt_{kind}")
+            with ctx():
+                _jax_run(data, ckpt, JAX_CKPT_STEPS, optimizer_kind=kind)
+            npz = os.path.join(tmp, f"{kind}.npz")
+            J2N.convert(JCK.latest_checkpoint(ckpt), "b1c6", TRAIN_SIZE,
+                        kind, npz)
+            with np.load(npz) as z:
+                arrays.update({f"{kind}/npz/{k}": z[k] for k in z.files})
+            with open(npz + ".json") as f:
+                meta = json.load(f)
+            with ctx():
+                lines, next_meta, state, _ = _jax_run(
+                    data, ckpt, 1, optimizer_kind=kind)
+            arrays.update({f"{kind}/next/{k}": v
+                           for k, v in _state_arrays(state).items()})
+            out[kind] = {"metadata": meta, "data_dir": data,
+                         "next_metrics": lines[-1],
+                         "next_global_step": next_meta["global_step"]}
+    save("jax_ckpt", arrays, {
+        "run_training": dict(TRAIN_RUN, steps=JAX_CKPT_STEPS),
+        "shards": JAX_CKPT_SHARDS, "data_seed": TRAIN_DATA_SEED,
+        "runs": out, "ns_dtype": {"sgd": None, "normuon": "float32"},
+        "npz": "KIND/npz/<keystr path>: tools/jax_checkpoint_to_npz.py's "
+               "arrays; runs[KIND].metadata its JSON (paths under the "
+               "maker's data_dir)",
+        "next": "KIND/next/*: the state after one more run_training step"})
+
+
 MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "chase": make_chase, "ladder_exact": make_ladder_exact,
           "selfplay": make_selfplay, "resign": make_resign,
@@ -1693,7 +1832,8 @@ MAKERS = {"weights_b1c6": make_weights, "search": make_search,
           "evalsgf": make_evalsgf, "play": make_play,
           "ckpt_clean": make_ckpt_clean, "sgftools": make_sgftools,
           "genposes": make_genposes, "genboard": make_genboard,
-          "book": make_book, "fused": make_fused}
+          "book": make_book, "fused": make_fused,
+          "fused_mesh": make_fused_mesh, "jax_ckpt": make_jax_ckpt}
 
 
 def main() -> int:
@@ -1702,9 +1842,15 @@ def main() -> int:
                     help="fixtures to write (default: all)")
     opts = ap.parse_args()
     torch.set_num_threads(1)
-    for name in opts.only or MAKERS:
+    names = opts.only or list(MAKERS)
+    for name in names:
         t0 = time.time()
-        MAKERS[name]()
+        if name == "fused_mesh" and names != ["fused_mesh"]:
+            import subprocess
+            subprocess.run([sys.executable, __file__, "--only", name],
+                           check=True)
+        else:
+            MAKERS[name]()
         print(f"{name}: {time.time() - t0:.1f} s", flush=True)
     return 0
 
