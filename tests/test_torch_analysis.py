@@ -16,9 +16,6 @@ import torch
 from katago_torch.cli import analysis as A
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REF, META = C.load_ref("analysis")
 MODEL = str(C.REF_DIR / META["model"])

@@ -26,9 +26,6 @@ from katago_torch.book import book as TB
 from katago_torch.cli import book_cmd as TBC
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 _, META = C.load_ref("book")
 OUT = META["outputs"]

@@ -3,17 +3,23 @@
 Inputs are made from a seed with numpy and fed to both the JAX package
 and its port (on device="cpu"); outputs are compared as numpy arrays.
 JAX programs are jitted once per module through `jax_fns`.
+
+Threads are set once, here, for every test: importing this module gives
+the process one CPU thread for torch and for OpenMP/MKL (an outside
+`OMP_NUM_THREADS` wins). Every xdist worker imports it while it collects
+the suite, so the setting holds before any test runs, and processes that
+a test spawns inherit it. A test file sets no thread count of its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from katago_tpu.game import history as JH
@@ -23,16 +29,11 @@ from katago_torch.game import rules as TR
 
 CPU = "cpu"
 
-
-@pytest.fixture
-def torch_one_thread():
-    """One intra-op thread for torch: the port's test nets and boards are
-    tiny, and on a shared CPU (or beside other test workers) more threads
-    only contend. Restores the count afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+# Beside other test workers, more threads only contend: the port's test
+# nets and boards are tiny.
+os.environ.setdefault("OMP_NUM_THREADS", "1")
+os.environ.setdefault("MKL_NUM_THREADS", os.environ["OMP_NUM_THREADS"])
+torch.set_num_threads(int(os.environ["OMP_NUM_THREADS"]))
 
 RULESETS = {
     "tromp_taylor": (JR.Rules.tromp_taylorish(), TR.Rules.tromp_taylorish()),

@@ -31,9 +31,6 @@ from katago_torch.dataio import sgf as TS
 from katago_torch.distributed.client import ClientError, Connection, ModelInfo
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 MODEL_BYTES = (C.REF_DIR / "b1c6_s3.bin.gz").read_bytes()
 SCHEMA = json.loads((C.REF_DIR / "npz_schema.json").read_text())["per_row"]

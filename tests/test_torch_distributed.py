@@ -35,9 +35,6 @@ from katago_torch.train import checkpoint as TCK
 from katago_torch.train import train_step as TSTEP
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SIZE = 5
 BATCH = 16
@@ -100,7 +97,6 @@ def _first_search_visits(mesh, noise: bool):
 
 
 def _rank_main(rank, urls, data_dir, ckpt, queue):
-    torch.set_num_threads(1)
     # the trainer through its CLI (its own group): rank 0 alone writes
     # the checkpoint
     TCMD.main(["-data-dir", data_dir, "-ckpt-dir", ckpt, "-multi-host",

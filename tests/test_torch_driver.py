@@ -20,9 +20,6 @@ from katago_torch.search.driver import (AsyncSearch, SearchDriver,
 from katago_torch.search.params import SearchParams
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SIZE = 5
 CHUNK = 4

@@ -28,9 +28,6 @@ from katago_torch.search.params import SearchParams
 from katago_torch.selfplay import fused as TFU
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REF, META = C.load_ref("fused")
 A = META["args"]

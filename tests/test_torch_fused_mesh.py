@@ -39,9 +39,6 @@ from katago_torch.search.params import SearchParams
 from katago_torch.selfplay import fused as TFU
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REF, META = C.load_ref("fused_mesh")
 FUSED, _ = C.load_ref("fused")
@@ -117,7 +114,6 @@ def _fused_case(mesh) -> dict:
 
 
 def _rank_main(rank, url, queue):
-    torch.set_num_threads(1)
     mesh = PM.initialize_multihost(url, 2, rank, "cpu")
     try:
         out = {"jax": _jax_case(mesh), "fused": _fused_case(mesh)}

@@ -33,9 +33,6 @@ from katago_torch.models import genboard as TGB
 from katago_torch.models import weights as TW
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 GB, GB_META = C.load_ref("genboard")
 GP, GP_META = C.load_ref("genposes")

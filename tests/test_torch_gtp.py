@@ -16,9 +16,6 @@ from katago_torch.cli import gtp as G
 from katago_torch.game import board as B
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REF, META = C.load_ref("gtp")
 MODEL = str(C.REF_DIR / META["model"])

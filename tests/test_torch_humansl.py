@@ -41,10 +41,7 @@ from katago_torch.search.params import SearchParams
 
 from tests import test_torch_common as C
 from tests.test_torch_analysis import assert_json_match
-from tests.test_torch_common import torch_one_thread  # noqa: F401
 from tests.test_torch_gtp import assert_transcripts_match
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 HUMANSL, HUMANSL_META = C.load_ref("humansl")
 MODEL = str(C.REF_DIR / HUMANSL_META["model"])

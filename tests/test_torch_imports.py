@@ -3,9 +3,13 @@ no optax or orbax and nothing of katago_tpu; neither it nor chip_smoke.py
 imports the JAX-side checkpoint converter (tools/jax_checkpoint_to_npz.py);
 its entry points refuse to fall back to the CPU;
 kernel wrappers take the plain version only for CPU tensors; built kernel
-libraries are never tracked."""
+libraries are never tracked. It also checks the test harness's settings: one
+CPU thread per test worker for torch, and the virtual 8-device CPU mesh of
+conftest.py. That check lives here because `--dist loadfile` hands out the
+files with the most tests first, so a run cut by its time limit still has it."""
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -120,3 +124,13 @@ def test_kernel_build_directory_is_ignored_and_untracked():
         tracked = out.stdout.splitlines()
         assert not [f for f in tracked if "/_build/" in f
                     or f.endswith((".so", ".o"))], tracked
+
+
+def test_one_cpu_thread_per_worker_and_eight_devices():
+    import jax
+
+    from tests import test_torch_common  # noqa: F401  (sets the threads)
+
+    assert os.environ["OMP_NUM_THREADS"] == "1"
+    assert torch.get_num_threads() == 1
+    assert len(jax.devices()) == 8

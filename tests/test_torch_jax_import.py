@@ -37,10 +37,7 @@ from katago_torch.train import muon as TMUON
 from katago_torch.train import train_step as TSTEP
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
 from tests.test_torch_train import ZERO_GRAD_PARAMS, _close, _sub
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REF, META = C.load_ref("jax_ckpt")
 RUN = META["run_training"]

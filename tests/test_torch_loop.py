@@ -35,9 +35,6 @@ from katago_tpu.train import shuffle as JS
 from katago_tpu.utils import logger as JLOG
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SHUFFLE_CASES = {
     "one_bucket": dict(rows_per_shard=7),

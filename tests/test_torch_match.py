@@ -39,9 +39,6 @@ from katago_torch.utils import elo as TE
 from katago_tpu.utils import elo as JE
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 RECORDS = [(7, 3, 0), (0, 5, 1), (12, 12, 4), (1, 0, 0), (0, 0, 0),
            (30.5, 2, 3)]

@@ -28,9 +28,6 @@ from katago_torch.dataio import sgfscan as TSCAN
 from katago_torch.ops import _hostbuild
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SETTINGS = settings(max_examples=150, derandomize=True, deadline=None)
 MALFORMED = [C.SGF_BROKEN, "", "no game here", "(", "()", "(;", "(;B[aa]",

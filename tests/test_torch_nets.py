@@ -39,9 +39,6 @@ from katago_torch.models import model as TM
 from katago_torch.models import weights as TW
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SHAPES = json.loads((C.REF_DIR / "model_shapes.json").read_text())["shapes"]
 NETS, NETS_META = C.load_ref("nets")

@@ -25,9 +25,6 @@ from katago_torch.search import mirror as TMIR
 from katago_torch.search.params import SearchParams as TParams
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REF, META = C.load_ref("search_extras")
 SIZE, VISITS = META["size"], META["visits"]
@@ -63,12 +60,7 @@ def check_result(res, prefix, tol=1e-5):
 
 @pytest.fixture(scope="module")
 def extras_search():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return _extras_search()
-    finally:
-        torch.set_num_threads(n)
+    return _extras_search()
 
 
 def _extras_search():

@@ -9,7 +9,6 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import pytest
 import torch
 
 from katago_torch.cli import selfplay_cmd as SP
@@ -18,10 +17,6 @@ from katago_torch.models import model as TM
 from katago_torch.models import weights as TWT
 from katago_torch.search import mcts
 from katago_torch.train import checkpoint as TCK
-
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 
 def _export(models_dir, name, seed, mtime):

@@ -34,9 +34,6 @@ from katago_torch.cli import summarize_sgfs_cmd as TSUM
 from katago_torch.dataio import sgfscan as TSCAN
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 REF, META = C.load_ref("sgftools")
 OUT = META["outputs"]

@@ -44,9 +44,6 @@ from katago_torch.train import train_step as TSTEP
 from katago_tpu.cli import genconfig_cmd as JGEN
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 MODEL = str(C.REF_DIR / "b1c6_s3.bin.gz")
 DECIMAL = re.compile(r"[+-]?\d+\.\d+")

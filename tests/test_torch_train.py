@@ -58,9 +58,6 @@ from katago_torch.train import train_step as TSTEP
 from katago_torch.train.muon import as_matrix
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 SIZE, BATCH = 5, 16
 RUN = {"size": SIZE, "config_name": "b1c6", "batch_size": BATCH,

@@ -31,9 +31,6 @@ from katago_torch.train import checkpoint as TCK
 from katago_torch.train.datagen import DataFileServer as TServer
 
 from tests import test_torch_common as C
-from tests.test_torch_common import torch_one_thread  # noqa: F401
-
-pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 
 def _assert_rows_equal(a: dict, b: dict):
